@@ -1,0 +1,22 @@
+"""apr_torch: the PyTorch / CUDA port of apr_tpu.
+
+This slice runs the FCGF-APR registration eval (voxelize -> sparse pyramid
+-> ResUNet encoder -> feature NN -> RANSAC -> RTE/RRE) through
+``apr_torch.eval.FeatureTester``.  Entry points run on the card unless the
+caller passes ``device="cpu"``; the merge-path searchsorted behind every
+kernel map is the hand-written CUDA kernel ``csrc/searchsorted.cu``.
+
+The package imports torch, numpy and the standard library only.
+"""
+
+import torch
+
+from apr_torch.device import resolve_device
+
+# The 128-d feature NN is a float32 matmul expansion that the reference runs
+# at full precision, and the f32 encoder is held to the reference at ~1e-4:
+# TF32 (about three decimal digits) stays off for matmuls and convolutions.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ["resolve_device"]

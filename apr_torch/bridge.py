@@ -1,0 +1,81 @@
+"""Bridge from the flax ResUNet variables to the port's modules.
+
+A flax ``params`` / ``batch_stats`` pair (nested dicts of numpy arrays, as
+``jax.device_get`` returns them) becomes a state dict of
+:class:`apr_torch.models.resunet.ResUNet2`.  Names map one to one, except
+for the norm layers, which flax names by call order:
+
+- in ``ResUNet2``: ``MaskedBatchNorm_0`` .. ``_6`` are norm1, norm2, norm3,
+  norm4, norm4_tr, norm3_tr, norm2_tr;
+- in a block: ``MaskedBatchNorm_j`` (or ``MaskedInstanceNorm_j`` in the IN
+  variants) is ``norm{j + 1}``.
+
+Every flax leaf is consumed exactly once: a leaf that maps onto a name
+already taken, a leaf the model lacks and a model entry no leaf fills all
+raise.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from apr_torch.models.resunet import ResUNet2, make_resunet
+
+ENCODER_NORMS = ("norm1", "norm2", "norm3", "norm4",
+                 "norm4_tr", "norm3_tr", "norm2_tr")
+_NORM = re.compile(r"Masked(?:Batch|Instance)Norm_(\d+)")
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _leaves(sub, prefix + (name,))
+        else:
+            yield prefix + (name,), np.asarray(sub)
+
+
+def _torch_name(path: Tuple[str, ...]) -> str:
+    names = list(path)
+    top = _NORM.fullmatch(names[0])
+    if top:
+        names[0] = ENCODER_NORMS[int(top.group(1))]
+    elif names[0].startswith("block") and len(names) > 2:
+        inner = _NORM.fullmatch(names[1])
+        if inner:
+            names[1] = f"norm{int(inner.group(1)) + 1}"
+    return ".".join(names)
+
+
+def resunet_state_dict(params: Mapping,
+                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`ResUNet2` from flax variables (float32)."""
+    out: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for path, leaf in _leaves(tree):
+            name = _torch_name(path)
+            if name in out:
+                raise ValueError(f"flax leaf {'/'.join(path)} maps onto "
+                                 f"{name}, which another leaf already filled")
+            out[name] = torch.from_numpy(np.array(leaf, np.float32))
+    return out
+
+
+def load_flax_resunet_(model: ResUNet2, params: Mapping,
+                       batch_stats: Mapping) -> ResUNet2:
+    """Copy flax variables into ``model`` in place (strict: every model
+    entry filled, every leaf used)."""
+    model.load_state_dict(resunet_state_dict(params, batch_stats),
+                          strict=True)
+    return model
+
+
+def resunet_from_flax(name: str, params: Mapping, batch_stats: Mapping,
+                      device="cuda", **kwargs) -> ResUNet2:
+    """A shipped ResUNet variant on ``device`` with bridged flax weights."""
+    return load_flax_resunet_(make_resunet(name, device=device, **kwargs),
+                              params, batch_stats)

@@ -1,0 +1,62 @@
+"""Typed configuration: the port's own copy of ``apr_tpu.config.APRConfig``.
+
+Field names and defaults are the reference's, so a ``config.json`` the
+reference wrote loads with :meth:`APRConfig.from_dict` (fields the port
+does not read yet are dropped).  This slice holds the fields the
+registration eval reads; the later slices add theirs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass
+class APRConfig:
+    # --- trainer / model (FCGF path) ---
+    trainer: str = "GenerativePairTrainer"
+    model: str = "ResUNetFatBN"
+    model_n_out: int = 128
+    conv1_kernel_size: int = 5
+    normalize_feature: bool = True
+    bn_momentum: float = 0.05
+    # conv compute dtype: "bfloat16" rounds conv operands to bf16 and
+    # accumulates in float32 (params stay float32 masters); "float32" or
+    # None keeps everything in float32
+    compute_dtype: str = "bfloat16"
+
+    # --- data ---
+    voxel_size: float = 0.3
+
+    # --- static capacities (fixed buffer sizes) ---
+    point_capacity: int = 131072          # raw points per cloud
+    capacities: Tuple[int, ...] = (16384, 8192, 4096, 2048)
+
+    # --- eval ---
+    test_num_ransac_hypotheses: int = 32768
+    test_ransac_dist_thresh: Optional[float] = None  # default: voxel_size
+    # confidence-style RANSAC escalation (registration/ransac.py): None or 0
+    # is off; a factor f > 0 adds up to ``rungs`` stages of f x hypotheses
+    test_ransac_escalation_factor: Optional[int] = None
+    test_ransac_escalation_min_inliers: int = 30
+    test_ransac_escalation_rungs: int = 1
+    test_ransac_escalation_confidence: float = 0.0
+    test_subsample: int = 5000
+    # occupancy-driven capacity bucketing (eval/bucketing.py): number of
+    # halving tiers below the worst-case capacities (None or 0 = off)
+    test_capacity_buckets: Optional[int] = None
+    rte_thresh: float = 2.0
+    rre_thresh: float = 5.0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "APRConfig":
+        """Config from a dict such as a reference ``config.json``; unknown
+        keys are dropped and list values of tuple fields become tuples."""
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        known = {k: v for k, v in d.items() if k in fields}
+        for name, v in known.items():
+            if isinstance(fields[name].default, tuple):
+                known[name] = tuple(v)
+        return cls(**known)

@@ -1,0 +1,86 @@
+"""apr_torch imports torch, numpy and the standard library only, and its
+entry points run on the card unless asked for the CPU."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import apr_torch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import apr_torch
+names = ["apr_torch"] + [m.name for m in pkgutil.walk_packages(
+    apr_torch.__path__, "apr_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+             or m.startswith("apr_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_every_module_imports_without_jax_or_the_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert {"apr_torch.eval.tester", "apr_torch.ops.searchsorted",
+            "apr_torch.kernels.build", "apr_torch.bridge"} <= set(
+                res["modules"])
+    assert len(res["modules"]) == len(list(pkgutil.walk_packages(
+        apr_torch.__path__, "apr_torch."))) + 1
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _entry_points():
+    from apr_torch.bridge import resunet_from_flax
+    from apr_torch.config import APRConfig
+    from apr_torch.eval import FeatureTester
+    from apr_torch.models import load_model
+    from apr_torch.training.batching import make_pair_batch
+    from apr_torch.training.trainer import FCGFTrainer
+
+    cfg = APRConfig(model="ResUNetBN2", model_n_out=8, conv1_kernel_size=3)
+    z3, zm = np.zeros((1, 4, 3), np.float32), np.zeros((1, 4), bool)
+    return {
+        "FCGFTrainer": lambda **kw: FCGFTrainer(cfg, **kw),
+        "FeatureTester": lambda **kw: FeatureTester(cfg, None, **kw),
+        "load_model": lambda **kw: load_model("ResUNetBN2")(
+            out_channels=8, **kw),
+        "resunet_from_flax": lambda **kw: resunet_from_flax(
+            "ResUNetBN2", {}, {}, **kw),
+        "make_pair_batch": lambda **kw: make_pair_batch(
+            z3, zm, z3, zm, z3[:, :1], zm[:, :1], z3[:, :1], zm[:, :1],
+            np.eye(4, dtype=np.float32)[None], capacities=(4, 2, 2, 2),
+            conv1_kernel_size=3, with_correspondences=False, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["FCGFTrainer", "FeatureTester",
+                                  "load_model", "resunet_from_flax",
+                                  "make_pair_batch"])
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Without a card, an entry point given no device raises; device='cpu'
+    runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    make = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    if name != "resunet_from_flax":   # empty flax trees fail the bridge
+        make(device="cpu")
