@@ -1,10 +1,13 @@
 """apr_torch: the PyTorch / CUDA port of apr_tpu.
 
-This slice runs the FCGF-APR registration eval (voxelize -> sparse pyramid
--> ResUNet encoder -> feature NN -> RANSAC -> RTE/RRE) through
-``apr_torch.eval.FeatureTester``.  Entry points run on the card unless the
-caller passes ``device="cpu"``; the merge-path searchsorted behind every
-kernel map is the hand-written CUDA kernel ``csrc/searchsorted.cu``.
+It runs the FCGF-APR registration eval (voxelize -> sparse pyramid ->
+ResUNet encoder -> feature NN -> RANSAC -> RTE/RRE) through
+``apr_torch.eval.FeatureTester`` and the FCGF-APR training step
+(GenerativePairTrainer) through ``apr_torch.training.trainer.FCGFTrainer``.
+Entry points run on the card unless the caller passes ``device="cpu"``.
+Two hand-written CUDA kernels carry them: the merge-path searchsorted
+behind every kernel map (``csrc/searchsorted.cu``) and the nearest-neighbour
+min of the Chamfer loss (``csrc/nn_min.cu``).
 
 The package imports torch, numpy and the standard library only.
 """

@@ -1,9 +1,12 @@
-"""Bridge from the flax ResUNet variables to the port's modules.
+"""Bridge from the flax variables to the port's modules.
 
 A flax ``params`` / ``batch_stats`` pair (nested dicts of numpy arrays, as
 ``jax.device_get`` returns them) becomes a state dict of
-:class:`apr_torch.models.resunet.ResUNet2`.  Names map one to one, except
-for the norm layers, which flax names by call order:
+:class:`apr_torch.models.resunet.ResUNet2`, and a trainer's whole tree
+(``{"encoder": ..., "generator": ...}`` in both) loads into an
+:class:`apr_torch.training.trainer.FCGFTrainer`.  Names map one to one
+(the GenerativeMLP keeps flax's ``Dense_i`` / ``MaskedBatchNorm_i``),
+except for the ResUNet's norm layers, which flax names by call order:
 
 - in ``ResUNet2``: ``MaskedBatchNorm_0`` .. ``_6`` are norm1, norm2, norm3,
   norm4, norm4_tr, norm3_tr, norm2_tr;
@@ -51,18 +54,30 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     return ".".join(names)
 
 
-def resunet_state_dict(params: Mapping,
-                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict of :class:`ResUNet2` from flax variables (float32)."""
+def _state_dict(params: Mapping, batch_stats: Mapping,
+                name_of) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats):
         for path, leaf in _leaves(tree):
-            name = _torch_name(path)
+            name = name_of(path)
             if name in out:
                 raise ValueError(f"flax leaf {'/'.join(path)} maps onto "
                                  f"{name}, which another leaf already filled")
             out[name] = torch.from_numpy(np.array(leaf, np.float32))
     return out
+
+
+def resunet_state_dict(params: Mapping,
+                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`ResUNet2` from flax variables (float32)."""
+    return _state_dict(params, batch_stats, _torch_name)
+
+
+def mlp_state_dict(params: Mapping,
+                   batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`apr_torch.models.mlp.GenerativeMLP` from flax
+    variables (float32); names map one to one."""
+    return _state_dict(params, batch_stats, ".".join)
 
 
 def load_flax_resunet_(model: ResUNet2, params: Mapping,
@@ -79,3 +94,23 @@ def resunet_from_flax(name: str, params: Mapping, batch_stats: Mapping,
     """A shipped ResUNet variant on ``device`` with bridged flax weights."""
     return load_flax_resunet_(make_resunet(name, device=device, **kwargs),
                               params, batch_stats)
+
+
+def load_flax_train_state_(trainer, params: Mapping, batch_stats: Mapping):
+    """Copy a flax trainer's ``params`` / ``batch_stats`` (each with an
+    ``encoder`` and, for the generative trainer, a ``generator`` subtree)
+    into ``trainer``'s modules in place, strictly: every subtree, entry and
+    leaf is used.  The optimizer state is left as it is."""
+    want = {"encoder"} | ({"generator"} if trainer.generator is not None
+                          else set())
+    for tree in (params, batch_stats):
+        if set(tree) != want:
+            raise ValueError(f"flax trainer tree has {sorted(tree)}, the "
+                             f"trainer wants {sorted(want)}")
+    load_flax_resunet_(trainer.encoder, params["encoder"],
+                       batch_stats["encoder"])
+    if trainer.generator is not None:
+        trainer.generator.load_state_dict(
+            mlp_state_dict(params["generator"], batch_stats["generator"]),
+            strict=True)
+    return trainer

@@ -2,8 +2,8 @@
 
 Field names and defaults are the reference's, so a ``config.json`` the
 reference wrote loads with :meth:`APRConfig.from_dict` (fields the port
-does not read yet are dropped).  This slice holds the fields the
-registration eval reads; the later slices add theirs.
+does not read yet are dropped).  It holds the fields the registration eval
+and the FCGF training step read; the later slices add theirs.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 class APRConfig:
     # --- trainer / model (FCGF path) ---
     trainer: str = "GenerativePairTrainer"
+    batch_size: int = 4
+    iter_size: int = 1
     model: str = "ResUNetFatBN"
     model_n_out: int = 128
     conv1_kernel_size: int = 5
@@ -26,13 +28,44 @@ class APRConfig:
     # accumulates in float32 (params stay float32 masters); "float32" or
     # None keeps everything in float32
     compute_dtype: str = "bfloat16"
+    generator_model: str = "GenerativeMLP_98"
+    point_generation_ratio: int = 4
+    symmetric: bool = False
+
+    # --- contrastive loss ---
+    num_pos_per_batch: int = 1024
+    num_hn_samples_per_batch: int = 256
+    pos_thresh: float = 0.1
+    neg_thresh: float = 1.4
+    neg_weight: float = 1.0
+    hit_ratio_thresh: float = 0.3
+
+    # --- generative loss ---
+    loss_ratio: float = 2e-3
+    regularization_strength: float = 0.01
+    regularization_type: str = "L2"
+    alpha: float = 1.0
+    # Chamfer backend: "window" (cell-sorted windowed NN, plain torch),
+    # "exact" (plain brute force), "pallas" (brute force through kernel K2)
+    chamfer_mode: str = "window"
+    chamfer_cell_multiplier: float = 4.0   # cell = multiplier * voxel_size
+
+    # --- optimizer ---
+    optimizer: str = "SGD"
+    lr: float = 1e-1
+    sgd_momentum: float = 0.9
+    weight_decay: float = 1e-4
+    exp_gamma: float = 0.99
 
     # --- data ---
     voxel_size: float = 0.3
+    positive_pair_search_voxel_size_multiplier: float = 1.5
 
     # --- static capacities (fixed buffer sizes) ---
     point_capacity: int = 131072          # raw points per cloud
     capacities: Tuple[int, ...] = (16384, 8192, 4096, 2048)
+    apc_capacity: int = 65536             # aggregated point cloud target
+    corr_capacity_per_point: int = 1      # GT matches kept per source point
 
     # --- eval ---
     test_num_ransac_hypotheses: int = 32768

@@ -1,5 +1,6 @@
 """SE(3) rigid-transform math, 4x4 homogeneous convention (port of
-``apr_tpu/geometry/se3.py``: the functions the registration eval uses)."""
+``apr_tpu/geometry/se3.py``: the functions the registration eval and the
+validation step use)."""
 
 from __future__ import annotations
 
@@ -24,3 +25,28 @@ def rotation_angle_deg(r_est: torch.Tensor, r_gt: torch.Tensor) -> torch.Tensor:
 def translation_error(t_est: torch.Tensor, t_gt: torch.Tensor) -> torch.Tensor:
     """RTE: Euclidean distance between translation vectors."""
     return torch.linalg.vector_norm(t_est - t_gt)
+
+
+def rotation_from_euler(angles: torch.Tensor) -> torch.Tensor:
+    """R = Rz(c) @ Ry(b) @ Rx(a) for angles [a, b, c] (radians)."""
+    a, b, c = angles[0], angles[1], angles[2]
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    rx = mat([[one, zero, zero], [zero, a.cos(), -a.sin()],
+              [zero, a.sin(), a.cos()]])
+    ry = mat([[b.cos(), zero, b.sin()], [zero, one, zero],
+              [-b.sin(), zero, b.cos()]])
+    rz = mat([[c.cos(), -c.sin(), zero], [c.sin(), c.cos(), zero],
+              [zero, zero, one]])
+    return rz @ ry @ rx
+
+
+def make_transform(rotation: torch.Tensor,
+                   translation: torch.Tensor) -> torch.Tensor:
+    t = torch.eye(4, dtype=rotation.dtype, device=rotation.device)
+    t[:3, :3] = rotation
+    t[:3, 3] = translation
+    return t

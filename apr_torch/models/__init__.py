@@ -1,12 +1,15 @@
 """Model registry: reference names -> module factories.
 
 Mirrors ``apr_tpu.models.load_model`` for the ResUNet names (the registry
-of the reference, FCGF_APR/model/__init__.py).  SimpleNet and the
-generative MLPs arrive with the later slices.
+of the reference, FCGF_APR/model/__init__.py); the generative MLPs come
+from :func:`apr_torch.models.mlp.make_generative_mlp`.  SimpleNet arrives
+with a later slice.
 """
 
 from __future__ import annotations
 
+from apr_torch.models.mlp import MLP_VARIANTS, GenerativeMLP, \
+    make_generative_mlp
 from apr_torch.models.resunet import ResUNet2, make_resunet
 from apr_torch.models.resunet import _VARIANTS as RESUNET_VARIANTS
 from apr_torch.models.sparse import SparseLevel, SparsePyramid
@@ -26,5 +29,6 @@ def load_model(name: str):
                      f"{_RESUNET_NAMES})")
 
 
-__all__ = ["ResUNet2", "SparseLevel", "SparsePyramid", "load_model",
+__all__ = ["GenerativeMLP", "MLP_VARIANTS", "ResUNet2", "SparseLevel",
+           "SparsePyramid", "load_model", "make_generative_mlp",
            "make_resunet"]

@@ -2,9 +2,9 @@
 
 With padded fixed-capacity buffers, padding rows must not enter any
 statistic, so moments are masked.  The port of
-``apr_tpu/models/layers.py``: ``MaskedBatchNorm`` runs in running-average
-(eval) mode only in this slice; its batch-moment branch and the
-``stats_groups`` pair fold come with training.
+``apr_tpu/models/layers.py``.  Running stats follow the torch convention
+(new = (1 - momentum) * old + momentum * batch) with the BIASED masked
+variance, as the reference's flax norm keeps them.
 """
 
 from __future__ import annotations
@@ -28,7 +28,12 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of x [..., N, C] with running stats.
 
     ``scale``/``bias`` are the affine parameters and the ``mean``/``var``
-    buffers the running statistics, named as in the flax tree.
+    buffers the running statistics, named as in the flax tree.  In train
+    mode the batch moments normalise and the buffers are updated in place
+    (under no_grad).  ``stats_groups=G`` treats the leading batch axis as G
+    interleaved stat groups (row i in group i % G): per-group moments and
+    normalisation, and the momentum updates applied group after group, as
+    G sequential forwards of the ungrouped norm would (the pair fold).
     """
 
     def __init__(self, channels: int, momentum: float = 0.1,
@@ -41,14 +46,31 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    @torch.no_grad()
+    def _update(self, means, variances) -> None:
+        m = self.momentum
+        rm, rv = self.mean, self.var
+        for mean, var in zip(means, variances):
+            rm = (1.0 - m) * rm + m * mean
+            rv = (1.0 - m) * rv + m * var
+        self.mean.copy_(rm)
+        self.var.copy_(rv)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                stats_groups: int = 1) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm batch statistics (train mode) arrive with "
-                "the training slice (slice 2); call .eval()")
-        y = (x - self.mean) * torch.reciprocal(
-            torch.sqrt(self.var + self.epsilon))
-        y = y * self.scale + self.bias
+            g, c = stats_groups, x.shape[-1]
+            x = x.reshape((x.shape[0] // g, g) + x.shape[1:])
+            mg = mask.reshape((mask.shape[0] // g, g) + mask.shape[1:])
+            mean, var = masked_moments(
+                x, mg, (0,) + tuple(range(2, x.dim() - 1)))     # [g, C]
+            self._update(mean.detach(), var.detach())
+            shape = (1, g) + (1,) * (x.dim() - 3) + (c,)
+            mean, var = mean.reshape(shape), var.reshape(shape)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.reciprocal(torch.sqrt(var + self.epsilon))
+        y = (y * self.scale + self.bias).reshape(mask.shape + y.shape[-1:])
         return torch.where(mask[..., None], y, 0.0)
 
 
@@ -67,7 +89,9 @@ class MaskedInstanceNorm(nn.Module):
             self.register_parameter("scale", None)
             self.register_parameter("bias", None)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                stats_groups: int = 1) -> torch.Tensor:
+        # per-cloud stats already: the pair fold's grouping changes nothing
         axis = x.dim() - 2  # the points axis
         mean, var = masked_moments(x, mask, (axis,))
         mean = mean.unsqueeze(axis)

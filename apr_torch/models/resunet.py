@@ -6,7 +6,10 @@ stride-2 downsamplings, transposed-conv upsamplings with skip
 concatenation, a 1x1 fusion conv, a final 1x1 conv with bias, optional L2
 feature normalization) over padded [B, C_l, F] buffers with masks.  Every
 shipped channel plan is kept.  Weights use the reference layouts: sparse
-conv kernels [K, Ci, Co], dense kernels [Ci, Co].
+conv kernels [K, Ci, Co], dense kernels [Ci, Co].  With autograd on, every
+gathered conv goes through :func:`sparse_conv_adjoint`, whose backward
+gathers over the transpose kernel map; ``forward(..., stats_groups=2)`` in
+train mode is the pair-folded encoder (per-side batch-norm statistics).
 """
 
 from __future__ import annotations
@@ -19,17 +22,8 @@ from torch import nn
 
 from apr_torch.device import resolve_device
 from apr_torch.models.layers import MaskedBatchNorm, MaskedInstanceNorm
-from apr_torch.models.sparse import SparsePyramid, sparse_conv_apply
-
-
-def _fold_table(table: torch.Tensor, n_entries: int) -> torch.Tensor:
-    """Fold the batch dim of table [B, N_out, K] into rows: per-cloud index
-    offsets and one global sentinel B * n_entries."""
-    b = table.shape[0]
-    offs = (torch.arange(b, dtype=table.dtype, device=table.device)
-            * n_entries)[:, None, None]
-    t = torch.where(table < n_entries, table + offs, b * n_entries)
-    return t.reshape(b * table.shape[1], table.shape[2])
+from apr_torch.models.sparse import SparsePyramid, fold_table, \
+    sparse_conv_adjoint
 
 
 def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
@@ -60,7 +54,12 @@ class SparseConv(nn.Module):
                      else None)
 
     def forward(self, feats: torch.Tensor, table: torch.Tensor,
-                out_mask: torch.Tensor) -> torch.Tensor:
+                out_mask: torch.Tensor, table_t: Optional[torch.Tensor] = None,
+                in_mask: Optional[torch.Tensor] = None,
+                reverse_k: bool = True) -> torch.Tensor:
+        """``table_t``: the transpose kernel map [B, N_in, K] for the
+        backward (default ``table`` with reversed offsets: the same-level
+        case); it is folded only when a backward runs."""
         b, n_in, ci = feats.shape
         n_out, k = table.shape[1:]
         cd = self.compute_dtype
@@ -73,9 +72,12 @@ class SparseConv(nn.Module):
             out = torch.where(out_mask[..., None],
                               out.reshape(b, n_out, -1), 0.0)
         else:
-            out = sparse_conv_apply(
-                feats.reshape(b * n_in, ci), _fold_table(table, n_in),
-                self.kernel, out_mask.reshape(-1), cd,
+            if in_mask is None:
+                in_mask = out_mask
+            out = sparse_conv_adjoint(
+                feats.reshape(b * n_in, ci), fold_table(table, n_in),
+                table_t, self.kernel, out_mask.reshape(-1),
+                in_mask.reshape(-1), reverse_k, cd,
             ).reshape(b, n_out, -1)
         if self.bias is not None:
             out = torch.where(out_mask[..., None], out + self.bias, 0.0)
@@ -119,9 +121,10 @@ class BasicBlock(nn.Module):
                                 compute_dtype=compute_dtype)
         self.norm2 = _norm(norm_type, channels, bn_momentum)
 
-    def forward(self, feats, table, mask):
-        out = torch.relu(self.norm1(self.conv1(feats, table, mask), mask))
-        out = self.norm2(self.conv2(out, table, mask), mask)
+    def forward(self, feats, table, mask, stats_groups: int = 1):
+        out = torch.relu(self.norm1(self.conv1(feats, table, mask), mask,
+                                    stats_groups))
+        out = self.norm2(self.conv2(out, table, mask), mask, stats_groups)
         out = torch.relu(out + feats)
         return torch.where(mask[..., None], out, 0.0)
 
@@ -129,8 +132,9 @@ class BasicBlock(nn.Module):
 class ResUNet2(nn.Module):
     """4-level sparse U-Net; returns per-voxel features at level 0.
 
-    Call: model(feats [B, C0, in_channels], pyramid (batched SparsePyramid))
-    -> [B, C0, out_channels].  Eval mode only in this slice.
+    Call: model(feats [B, C0, in_channels], pyramid (batched SparsePyramid),
+    stats_groups) -> [B, C0, out_channels].  In train mode the norms use
+    batch statistics, per interleaved group of ``stats_groups`` clouds.
     """
 
     def __init__(self, in_channels: int = 1, out_channels: int = 32,
@@ -189,30 +193,35 @@ class ResUNet2(nn.Module):
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
 
-    def forward(self, feats: torch.Tensor,
-                pyramid: SparsePyramid) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, pyramid: SparsePyramid,
+                stats_groups: int = 1) -> torch.Tensor:
         masks = [lv.mask for lv in pyramid.levels]
+        sg = stats_groups
         out_s1 = self.norm1(self.conv1(feats, pyramid.conv1_map, masks[0]),
-                            masks[0])
-        out_s1 = self.block1(out_s1, pyramid.same_maps[0], masks[0])
+                            masks[0], sg)
+        out_s1 = self.block1(out_s1, pyramid.same_maps[0], masks[0], sg)
         skips = [out_s1]
         outs = [torch.relu(out_s1)]
         for lvl in range(1, 4):
             x = getattr(self, f"conv{lvl + 1}")(
-                outs[-1], pyramid.down_maps[lvl - 1], masks[lvl])
-            x = getattr(self, f"norm{lvl + 1}")(x, masks[lvl])
+                outs[-1], pyramid.down_maps[lvl - 1], masks[lvl],
+                table_t=pyramid.up_maps[lvl - 1], in_mask=masks[lvl - 1],
+                reverse_k=False)
+            x = getattr(self, f"norm{lvl + 1}")(x, masks[lvl], sg)
             x = getattr(self, f"block{lvl + 1}")(
-                x, pyramid.same_maps[lvl], masks[lvl])
+                x, pyramid.same_maps[lvl], masks[lvl], sg)
             skips.append(x)
             outs.append(torch.relu(x))
 
         out = outs[-1]
         for lvl in range(3, 0, -1):
             x = getattr(self, f"conv{lvl + 1}_tr")(
-                out, pyramid.up_maps[lvl - 1], masks[lvl - 1])
-            x = getattr(self, f"norm{lvl + 1}_tr")(x, masks[lvl - 1])
+                out, pyramid.up_maps[lvl - 1], masks[lvl - 1],
+                table_t=pyramid.down_maps[lvl - 1], in_mask=masks[lvl],
+                reverse_k=False)
+            x = getattr(self, f"norm{lvl + 1}_tr")(x, masks[lvl - 1], sg)
             x = getattr(self, f"block{lvl + 1}_tr")(
-                x, pyramid.same_maps[lvl - 1], masks[lvl - 1])
+                x, pyramid.same_maps[lvl - 1], masks[lvl - 1], sg)
             # skip concat (ME.cat) with the encoder output of this level
             out = torch.cat([torch.relu(x), skips[lvl - 1]], dim=-1)
 
@@ -240,7 +249,8 @@ _VARIANTS = {
 def make_resunet(name: str, device="cuda", seed: int = 0,
                  **kwargs) -> ResUNet2:
     """A shipped ResUNet variant by reference name, with random weights from
-    ``seed``, on ``device``, in eval mode (the only mode of this slice)."""
+    ``seed``, on ``device``, in eval mode (a trainer switches it to train
+    mode for its steps)."""
     dev = resolve_device(device)
     base = name.replace("IN2", "BN2")
     block_norm = "IN" if "IN2" in name else "BN"

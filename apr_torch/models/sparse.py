@@ -7,7 +7,8 @@ are batched binary searches into those rows (kernel K1,
 ``apr_torch.ops.searchsorted``), and the sparse convolution is one gather
 plus one matmul.  Every map is a sentinel-padded int32 table: a missing
 neighbour points at the sentinel row (index == capacity), which carries
-zero features.
+zero features.  :func:`sparse_conv_adjoint` differentiates the conv with
+a backward that gathers over the transpose map instead of scattering.
 
 Semantics are MinkowskiEngine's for the ResUNet: stride-2 downsampling
 keeps unique(floor(c / 2)); a kernel-size-k same-level conv covers offsets
@@ -95,6 +96,23 @@ def kernel_map_down(coarse: SparseLevel, fine: SparseLevel,
                            device=coarse.coords.device)
     q = (coarse.coords * 2)[:, None, :, :] + offs[None, :, None, :]
     maps = _query_all_offsets(fine, q, coarse.mask[:, None, :])
+    return maps.transpose(1, 2)
+
+
+def kernel_map_up(fine: SparseLevel, coarse: SparseLevel,
+                  kernel_size: int = 3) -> torch.Tensor:
+    """[B, C_fine, k^3] table of coarse inputs for the transposed conv:
+    entry (f, o) is the coarse voxel (fine_coords[f] - o) / 2 when that
+    division is exact, else the sentinel.  The adjoint of
+    :func:`kernel_map_down` in the same offset order; the oracle for the
+    fast up maps (:func:`transpose_kernel_map`)."""
+    offs = torch.as_tensor(offsets_grid(kernel_size),
+                           device=fine.coords.device)
+    shifted = fine.coords[:, None, :, :] - offs[None, :, None, :]
+    even = ((shifted & 1) == 0).all(dim=-1)                # [B, K, Cf]
+    maps = _query_all_offsets(coarse, shifted >> 1,
+                              fine.mask[:, None, :] & even)
+    maps = torch.where(even, maps, coarse.keys.shape[1])
     return maps.transpose(1, 2)
 
 
@@ -278,3 +296,76 @@ def sparse_conv_apply(
     if out_mask is not None:
         out = torch.where(out_mask[:, None], out, 0.0)
     return out
+
+
+def fold_table(table: torch.Tensor, n_entries: int) -> torch.Tensor:
+    """Fold the batch dim of table [B, N_out, K] into rows: per-cloud index
+    offsets and one global sentinel B * n_entries."""
+    b = table.shape[0]
+    offs = (torch.arange(b, dtype=table.dtype, device=table.device)
+            * n_entries)[:, None, None]
+    t = torch.where(table < n_entries, table + offs, b * n_entries)
+    return t.reshape(b * table.shape[1], table.shape[2])
+
+
+class SparseConvAdjoint(torch.autograd.Function):
+    """:func:`sparse_conv_apply` with a scatter-free backward (port of the
+    reference's custom VJP, sparse.py:398-467).
+
+    The input gradient of a gather-matmul conv is another gather-matmul,
+    over the structural transpose map:
+
+        d feats = gather_matmul(g, table_t, W~),   W~[j] = W[p(j)]^T
+
+    with (table_t, p) = (table, K-1-j) for a same-level conv (``reverse_k``;
+    the offset grid is centrosymmetric), (up map, identity) for a stride-2
+    down conv and (down map, identity) for a transposed conv.  The weight
+    gradient re-gathers the inputs, so no [N_out, K, Ci] tensor is saved.
+    """
+
+    @staticmethod
+    def forward(ctx, feats, table, table_t, weights, out_mask, in_mask,
+                reverse_k, compute_dtype):
+        ctx.reverse_k, ctx.compute_dtype = reverse_k, compute_dtype
+        ctx.save_for_backward(feats, table, table_t, weights, out_mask,
+                              in_mask)
+        return sparse_conv_apply(feats, table, weights, out_mask,
+                                 compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, table, table_t, weights, out_mask, in_mask = ctx.saved_tensors
+        cd = ctx.compute_dtype
+        n_in, ci = feats.shape
+        n_out, k = table.shape
+        co = weights.shape[-1]
+        table_t = (table if table_t is None
+                   else fold_table(table_t, n_out // table_t.shape[0]))
+        g = torch.where(out_mask[:, None], g.float(), 0.0)
+        w_t = weights.transpose(1, 2)                      # [K, Co, Ci]
+        if ctx.reverse_k:
+            w_t = w_t.flip(0)
+        dfeats = sparse_conv_apply(g, table_t, w_t, in_mask, cd)
+        # d weights: one [K*Ci, N_out] @ [N_out, Co] product over the
+        # re-gathered inputs
+        f = feats.to(cd) if cd is not None else feats
+        gm = g.to(cd) if cd is not None else g
+        padded = torch.cat([f, f.new_zeros((1, ci))], dim=0)
+        gathered = padded[table.clamp(max=n_in).long()].reshape(n_out, k * ci)
+        dw = torch.matmul(gathered.float().T, gm.float()).reshape(k, ci, co)
+        return (dfeats.to(feats.dtype), None, None, dw.to(weights.dtype),
+                None, None, None, None)
+
+
+def sparse_conv_adjoint(feats, table, table_t, weights, out_mask, in_mask,
+                        reverse_k: bool = False,
+                        compute_dtype: Optional[torch.dtype] = None):
+    """The gather-matmul sparse conv (feats [N_in, Ci], table [N_out, K],
+    weights [K, Ci, Co]) whose backward gathers over ``table_t``
+    (indices into the output rows); see :class:`SparseConvAdjoint`.
+
+    ``table_t`` is [B, N_in / B, K] per cloud, with sentinel N_out / B,
+    and the backward folds it (so a forward with no backward to come never
+    pays for it); or None for ``table`` itself (a same-level conv)."""
+    return SparseConvAdjoint.apply(feats, table, table_t, weights, out_mask,
+                                   in_mask, reverse_k, compute_dtype)

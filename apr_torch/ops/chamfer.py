@@ -1,12 +1,20 @@
-"""Nearest-neighbour distances as a blockwise running min (port of
-``apr_tpu/ops/chamfer.py::nn_distances``; the Chamfer loss and its
-backward come with training)."""
+"""Nearest-neighbour distances as a blockwise running min, and the exact
+Chamfer loss (port of ``apr_tpu/ops/chamfer.py``).
+
+    chamfer(a, b) = mean_i min_j ||a_i - b_j||^2 + mean_j min_i ||a_i - b_j||^2
+
+over masked-valid points, per cloud of a leading batch.  The gradient
+re-gathers the argmin support instead of saving distance tiles.
+"""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from apr_torch.ops.distance import directed_backward, masked_mean, \
+    nn_min_plain
 
 
 def nn_distances(
@@ -16,36 +24,41 @@ def nn_distances(
     block: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query squared distance and index of the nearest masked-valid
-    support: (sqdist float32 [Nq], idx int32 [Nq]).  Supports stream through
-    in blocks with a running (min, argmin); ties go to the lowest index and
-    a query with no valid support gets (inf, Ns).
+    support of one cloud: (sqdist float32 [Nq], idx int32 [Nq]); the
+    one-cloud form of :func:`apr_torch.ops.distance.nn_min_plain`."""
+    d2, idx = nn_min_plain(queries[None], supports[None],
+                           None if s_mask is None else s_mask[None], block)
+    return d2[0], idx[0]
 
-    dim <= 4 sums exact per-coordinate differences (the matmul expansion
-    cancels at LiDAR coordinate magnitudes); higher dims use
-    |q|^2 - 2 q.s + |s|^2 with a float32 matmul, which needs TF32 off.
-    """
-    nq = queries.shape[0]
-    ns, dim = supports.shape
-    if s_mask is None:
-        s_mask = torch.ones(ns, dtype=torch.bool, device=supports.device)
-    best_d2 = torch.full((nq,), float("inf"), dtype=queries.dtype,
-                         device=queries.device)
-    best_i = torch.full((nq,), ns, dtype=torch.int32, device=queries.device)
-    qq = (queries * queries).sum(dim=-1)
-    for base in range(0, ns, block):
-        s = supports[base:base + block]
-        if dim <= 4:
-            d2 = torch.zeros((nq, s.shape[0]), dtype=queries.dtype,
-                             device=queries.device)
-            for c in range(dim):
-                dc = queries[:, c:c + 1] - s[None, :, c]
-                d2 = d2 + dc * dc
-        else:
-            d2 = qq[:, None] - 2.0 * (queries @ s.T) + (s * s).sum(-1)[None]
-            d2 = torch.clamp(d2, min=0.0)
-        d2 = torch.where(s_mask[None, base:base + block], d2, float("inf"))
-        blk_best, blk_arg = torch.min(d2, dim=1)
-        take = blk_best < best_d2
-        best_d2 = torch.where(take, blk_best, best_d2)
-        best_i = torch.where(take, blk_arg.to(torch.int32) + base, best_i)
-    return best_d2, best_i
+
+class DirectedMeanSqNN(torch.autograd.Function):
+    """Per cloud, the masked mean over queries of the squared distance to
+    the nearest valid support (plain torch ops, no kernel: the reference's
+    XLA path).  The backward masks with ``q_mask`` only, as
+    ``_directed_bwd`` does (chamfer.py:131)."""
+
+    @staticmethod
+    def forward(ctx, queries, supports, q_mask, s_mask):
+        d2, idx = nn_min_plain(queries, supports, s_mask)
+        val, nq = masked_mean(d2, q_mask)
+        ctx.save_for_backward(queries, supports, q_mask, idx, nq)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        queries, supports, q_mask, idx, nq = ctx.saved_tensors
+        dq, ds = directed_backward(queries, supports, q_mask, idx, nq, g)
+        return dq, ds, None, None
+
+
+def chamfer_distance(a: torch.Tensor, b: torch.Tensor,
+                     a_mask: Optional[torch.Tensor] = None,
+                     b_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B] bidirectional Chamfer per cloud of a [B, Na, 3], b [B, Nb, 3],
+    with the reference trainers' normalization."""
+    if a_mask is None:
+        a_mask = torch.ones(a.shape[:2], dtype=torch.bool, device=a.device)
+    if b_mask is None:
+        b_mask = torch.ones(b.shape[:2], dtype=torch.bool, device=b.device)
+    return (DirectedMeanSqNN.apply(a, b, a_mask, b_mask)
+            + DirectedMeanSqNN.apply(b, a, b_mask, a_mask))

@@ -79,3 +79,26 @@ def voxelize_lean(
     rep = torch.where(vox_mask, rep[:, :capacity], n)
     coords = torch.where(vox_mask[..., None], unpack_coords(uniq), 0)
     return coords, uniq, vox_mask, rep
+
+
+def dedup_points(points: torch.Tensor, voxel_size: float,
+                 mask: Optional[torch.Tensor] = None):
+    """One representative point per occupied voxel, in place of the input
+    buffers [B, N, 3]: returns ``(points_out [B, N, 3], keep_mask [B, N])``
+    where masked-out rows (duplicates and input padding) are zero.
+
+    One stable sort by voxel key and a run-boundary test; rows land in
+    ascending-key order with holes at the duplicates.  The representative
+    is the lowest-original-index member of each voxel (ME sparse_quantize
+    'sel').  Voxel keys use :func:`voxel_coords`, as the reference's
+    compiled program computes them."""
+    b, n, _ = points.shape
+    if mask is None:
+        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    keys = torch.where(mask, pack_coords(voxel_coords(points, voxel_size)),
+                       INVALID_KEY)
+    ks, order = torch.sort(keys, dim=1, stable=True)
+    pts = torch.gather(points, 1, order[..., None].expand(-1, -1, 3))
+    is_first = ks != INVALID_KEY
+    is_first[:, 1:] &= ks[:, 1:] != ks[:, :-1]
+    return torch.where(is_first[..., None], pts, 0.0), is_first

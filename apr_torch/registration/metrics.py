@@ -1,13 +1,14 @@
-"""Registration metrics: RTE / RRE and success (RTE < 2 m and RRE < 5 deg,
-the reference's criterion).  Port of ``apr_tpu/registration/metrics.py``."""
+"""Registration metrics: RTE / RRE, success (RTE < 2 m and RRE < 5 deg,
+the reference's criterion) and the hit ratio of matched pairs.  Port of
+``apr_tpu/registration/metrics.py``."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from apr_torch.geometry.se3 import rotation_angle_deg
+from apr_torch.geometry.se3 import apply_transform, rotation_angle_deg
 
 
 def registration_errors(t_est: torch.Tensor,
@@ -23,3 +24,16 @@ def registration_success(t_est: torch.Tensor, t_gt: torch.Tensor,
                          rre_thresh: float = 5.0) -> torch.Tensor:
     rte, rre = registration_errors(t_est, t_gt)
     return (rte < rte_thresh) & (rre < rre_thresh)
+
+
+def hit_ratio(xyz0: torch.Tensor, xyz1_nn: torch.Tensor, t_gt: torch.Tensor,
+              thresh: float, mask: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Fraction of matched pairs within ``thresh`` after the GT warp."""
+    d = torch.linalg.vector_norm(apply_transform(xyz0, t_gt) - xyz1_nn,
+                                 dim=1)
+    hit = (d < thresh).float()
+    if mask is None:
+        return hit.mean()
+    w = mask.float()
+    return (hit * w).sum() / torch.clamp(w.sum(), min=1.0)

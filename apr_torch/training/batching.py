@@ -1,24 +1,23 @@
 """Device-side batch assembly for registration pairs (port of
-``apr_tpu/training/batching.py``, the test-time path).
+``apr_tpu/training/batching.py``): voxelize, pyramids, GT correspondences
+and the APC target dedup.
 
 Both sides of every pair ride one 2B-cloud build: one voxelization and one
 pyramid build whose kernel-map searches each serve all 2B clouds in a
-single launch.
+single launch, and one APC dedup.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from apr_torch.device import resolve_device
 from apr_torch.models.sparse import SparseLevel, SparsePyramid, \
     build_pyramid_from_level
-from apr_torch.ops.voxelize import voxelize_lean
-
-_SLICE2 = "arrives with the training slice (slice 2)"
+from apr_torch.ops.voxelize import dedup_points, voxelize_lean
+from apr_torch.registration.matching import gt_correspondences
 
 
 class PairBatch(NamedTuple):
@@ -55,20 +54,21 @@ def make_pair_batch(
     voxel_size: float = 0.3,
     capacities=(16384, 8192, 4096, 2048),
     conv1_kernel_size: int = 5,
+    corr_cap: int = 1,
+    search_multiplier: float = 1.5,
     with_correspondences: bool = True,
     device="cuda",
 ) -> PairBatch:
-    """Voxelize both clouds of every pair and build their pyramids.
+    """Voxelize both clouds of every pair, build their pyramids, find the
+    GT correspondences and dedup the APC targets.
 
-    Inputs may be numpy arrays or tensors; they move to ``device``.  This
-    slice builds test-time batches only: ``with_correspondences=True`` (the
-    GT radius search, with its ``corr_cap`` and ``search_multiplier``) and
-    real APC targets (M > 8) raise.
+    Inputs may be numpy arrays or tensors; they move to ``device``.  The GT
+    match radius is ``voxel_size * search_multiplier`` (the reference's
+    positive_pair_search_voxel_size_multiplier), ``corr_cap`` matches per
+    source voxel.  ``with_correspondences=False`` (test time) skips the GT
+    search; APC buffers of 8 rows or fewer (test-time placeholders) skip
+    the dedup.
     """
-    if with_correspondences:
-        raise NotImplementedError(f"GT correspondences {_SLICE2}")
-    if np.shape(apc0)[1] > 8:
-        raise NotImplementedError(f"APC target dedup {_SLICE2}")
     dev = resolve_device(device)
 
     def put(x, dtype):
@@ -76,6 +76,7 @@ def make_pair_batch(
 
     p0, p1 = put(points0, torch.float32), put(points1, torch.float32)
     m0, m1 = put(mask0, torch.bool), put(mask1, torch.bool)
+    t_gt = put(t_gt, torch.float32)
     b, n = p0.shape[:2]
     pts = torch.cat([p0, p1], dim=0)
     coords, keys, vmask, rep = voxelize_lean(
@@ -87,15 +88,35 @@ def make_pair_batch(
                        .expand(-1, -1, 3))
     xyz = torch.where((rep < n)[..., None], xyz, 0.0)
     feats = vmask[..., None].to(torch.float32)
-    z = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+
+    if with_correspondences:
+        corr = gt_correspondences(
+            xyz[:b], xyz[b:], t_gt, radius=voxel_size * search_multiplier,
+            cap_per_point=corr_cap, mask0=vmask[:b], mask1=vmask[b:])
+        pos_src, pos_tgt, pos_mask = corr
+    else:
+        pos_src = pos_tgt = torch.zeros((b, 1), dtype=torch.int32,
+                                        device=dev)
+        pos_mask = torch.zeros((b, 1), dtype=torch.bool, device=dev)
+
+    apc0, apc1 = put(apc0, torch.float32), put(apc1, torch.float32)
+    apc0_mask, apc1_mask = put(apc0_mask, torch.bool), put(apc1_mask,
+                                                           torch.bool)
+    if apc0.shape[1] > 8:
+        # voxel-dedup the APC targets (reference sel_nghb quantization),
+        # both sides in one call
+        apc, apc_mask = dedup_points(torch.cat([apc0, apc1], dim=0),
+                                     voxel_size,
+                                     torch.cat([apc0_mask, apc1_mask], 0))
+        apc0, apc1 = apc[:b], apc[b:]
+        apc0_mask, apc1_mask = apc_mask[:b], apc_mask[b:]
+
     return PairBatch(
         pyramid0=_slice_tree(pyr, slice(0, b)),
         pyramid1=_slice_tree(pyr, slice(b, 2 * b)),
         feats0=feats[:b], feats1=feats[b:],
         xyz0=xyz[:b], xyz1=xyz[b:],
-        pos_src=z, pos_tgt=z,
-        pos_mask=torch.zeros((b, 1), dtype=torch.bool, device=dev),
-        apc0=put(apc0, torch.float32), apc0_mask=put(apc0_mask, torch.bool),
-        apc1=put(apc1, torch.float32), apc1_mask=put(apc1_mask, torch.bool),
-        t_gt=put(t_gt, torch.float32),
+        pos_src=pos_src, pos_tgt=pos_tgt, pos_mask=pos_mask,
+        apc0=apc0, apc0_mask=apc0_mask, apc1=apc1, apc1_mask=apc1_mask,
+        t_gt=t_gt,
     )

@@ -1,16 +1,32 @@
-"""FCGF-path trainer: the part the registration eval needs (port of
-``apr_tpu/training/trainer.py``: encoder construction and
-``_encode_pair`` in eval mode).  The losses, the optimizer and the train
-step arrive with the training slice (slice 2)."""
+"""FCGF-path trainer (port of ``apr_tpu/training/trainer.py``): the encoder,
+the GenerativePairTrainer's MLP generator, the hardest-contrastive and NPR
+losses, SGD / Adam with coupled weight decay, the train step with its
+non-finite gate, and the validation step.
+
+The train state is the modules plus the optimizer, updated in place; the
+step runs eagerly (no jit).  Both clouds of every pair are encoded in one
+2B-cloud forward; in train mode the norms take per-side statistics
+(``stats_groups=2``), as the reference's two sequential forwards do.
+"""
 
 from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from apr_torch.config import APRConfig
 from apr_torch.device import resolve_device
+from apr_torch.geometry.robust import est_rigid_robust
+from apr_torch.losses.contrastive import hardest_contrastive_loss
+from apr_torch.losses.generative import npr_reconstruction
 from apr_torch.models import load_model
-from apr_torch.training.batching import PairBatch
+from apr_torch.models.mlp import make_generative_mlp
+from apr_torch.registration.matching import feature_nn_correspondences
+from apr_torch.registration.metrics import hit_ratio, registration_errors
+from apr_torch.training.batching import PairBatch, make_pair_batch
+
+_SLICE2B = "arrives with slice 2b"
 
 
 def _zip_tree(fn, a, c):
@@ -21,8 +37,17 @@ def _zip_tree(fn, a, c):
     return type(a)(*items) if hasattr(a, "_fields") else tuple(items)
 
 
+def _flatten_pairs(pos_src, pos_tgt, pos_mask, n):
+    """Offset per-pair voxel indices into the concatenated [B*N] rows."""
+    b = pos_src.shape[0]
+    offs = (torch.arange(b, dtype=torch.int32, device=pos_src.device)
+            * n)[:, None]
+    return ((pos_src + offs).reshape(-1), (pos_tgt + offs).reshape(-1),
+            pos_mask.reshape(-1))
+
+
 class FCGFTrainer:
-    """Holds the encoder of an FCGF-path trainer (loss selected by name)."""
+    """One trainer class, loss selected by name (reference get_trainer)."""
 
     LOSS_MODES = (
         "ContrastiveLossTrainer",
@@ -37,41 +62,243 @@ class FCGFTrainer:
             raise ValueError(f"unknown trainer {config.trainer!r}")
         self.config = config
         self.device = resolve_device(device)
-        cd = (None if config.compute_dtype in (None, "float32")
-              else config.compute_dtype)
+        self.generative = config.trainer == "GenerativePairTrainer"
+        if self.generative and config.symmetric:
+            raise NotImplementedError(f"symmetric NPR (a second ResUNet as "
+                                      f"the decoder) {_SLICE2B}")
+        if config.iter_size > 1:
+            raise NotImplementedError(f"gradient accumulation (iter_size > "
+                                      f"1) {_SLICE2B}")
+        self.init_state(seed)
+
+    # --- construction / state -------------------------------------------
+
+    def init_state(self, seed: int = 0) -> None:
+        """Fresh random weights from ``seed``, zero optimizer state, step 0
+        and the config's learning rate."""
+        c = self.config
+        cd = None if c.compute_dtype in (None, "float32") else c.compute_dtype
         # batching feeds masked ones as input features (the FCGF
         # convention), so conv1 runs as a validity matmul with no gather
-        self.encoder = load_model(config.model)(
-            in_channels=1,
-            ones_input=True,
-            out_channels=config.model_n_out,
-            normalize_feature=config.normalize_feature,
-            conv1_kernel_size=config.conv1_kernel_size,
-            bn_momentum=config.bn_momentum,
-            compute_dtype=cd,
-            device=self.device,
-            seed=seed,
-        )
+        self.encoder = load_model(c.model)(
+            in_channels=1, ones_input=True, out_channels=c.model_n_out,
+            normalize_feature=c.normalize_feature,
+            conv1_kernel_size=c.conv1_kernel_size,
+            bn_momentum=c.bn_momentum, compute_dtype=cd, device=self.device,
+            seed=seed)
+        self.generator = (make_generative_mlp(
+            c.generator_model, out_points=c.point_generation_ratio,
+            in_channels=c.model_n_out, bn_momentum=c.bn_momentum,
+            device=self.device, seed=seed + 1) if self.generative else None)
+        self.step = 0
+        self.optimizer = self._make_optimizer()
 
-    @torch.inference_mode()
-    def _encode_pair(self, batch: PairBatch, train: bool = False):
-        """Encode both clouds of a PairBatch in one 2B-cloud forward;
-        returns (f0, f1), each [B, C0, model_n_out].
+    def modules(self) -> List[torch.nn.Module]:
+        return [m for m in (self.encoder, self.generator) if m is not None]
 
-        The two sides are interleaved (not concatenated) so pair i's clouds
-        are adjacent, the layout the train-mode pair fold of the norms needs.
+    def parameters(self) -> List[torch.nn.Parameter]:
+        return [p for m in self.modules() for p in m.parameters()]
+
+    def buffers(self) -> List[torch.Tensor]:
+        return [b for m in self.modules() for b in m.buffers()]
+
+    def _make_optimizer(self) -> torch.optim.Optimizer:
+        """SGD with momentum or Adam, both with coupled weight decay on
+        every parameter (optax.add_decayed_weights before the inner
+        optimizer, as the reference chains them)."""
+        c = self.config
+        if c.optimizer == "SGD":
+            return torch.optim.SGD(self.parameters(), lr=c.lr,
+                                   momentum=c.sgd_momentum,
+                                   weight_decay=c.weight_decay)
+        if c.optimizer == "Adam":
+            return torch.optim.Adam(self.parameters(), lr=c.lr,
+                                    weight_decay=c.weight_decay)
+        raise NotImplementedError(c.optimizer)
+
+    def epoch_lr(self, epoch: int) -> float:
+        """ExponentialLR parity: lr * gamma^epoch (stepped per epoch)."""
+        return self.config.lr * (self.config.exp_gamma ** epoch)
+
+    def set_lr(self, epoch: int) -> float:
+        lr = self.epoch_lr(epoch)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        return lr
+
+    # --- forward helpers ------------------------------------------------
+
+    def _encode_pair(self, batch: PairBatch, train: bool = False,
+                     fold: bool = True):
+        """Encode both clouds of a PairBatch; returns (f0, f1), each
+        [B, C0, model_n_out].  Train mode updates the encoder's running
+        stats in place.
+
+        ``fold=True`` runs one 2B-cloud forward with the sides interleaved
+        (pair i's clouds adjacent), where train-mode norms take per-side
+        moments and apply the momentum updates side 0 then side 1;
+        ``fold=False`` runs the two forwards one after the other.
         """
-        if train:
-            raise NotImplementedError(
-                "train-mode encoding arrives with the training slice "
-                "(slice 2)")
-        b = batch.feats0.shape[0]
+        self.encoder.train(train)
+        try:
+            with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+                if not fold:
+                    return (self.encoder(batch.feats0, batch.pyramid0),
+                            self.encoder(batch.feats1, batch.pyramid1))
+                b = batch.feats0.shape[0]
 
-        def weave(a, c):
-            return torch.stack([a, c], 1).reshape((2 * b,) + a.shape[1:])
+                def weave(a, c):
+                    return torch.stack([a, c], 1).reshape((2 * b,)
+                                                          + a.shape[1:])
 
-        feats = weave(batch.feats0, batch.feats1)
-        pyr = _zip_tree(weave, batch.pyramid0, batch.pyramid1)
-        f = self.encoder(feats, pyr)
-        f = f.reshape((b, 2) + f.shape[1:])
-        return f[:, 0], f[:, 1]
+                feats = weave(batch.feats0, batch.feats1)
+                pyr = _zip_tree(weave, batch.pyramid0, batch.pyramid1)
+                f = self.encoder(feats, pyr, stats_groups=2 if train else 1)
+                f = f.reshape((b, 2) + f.shape[1:])
+                return f[:, 0], f[:, 1]
+        finally:
+            self.encoder.train(False)
+
+    def _contrastive(self, generator, f0_flat, f1_flat, src, tgt, pmask, m0,
+                     m1):
+        c = self.config
+        if c.trainer not in ("HardestContrastiveLossTrainer",
+                             "GenerativePairTrainer"):
+            raise NotImplementedError(f"the {c.trainer} loss {_SLICE2B}")
+        return hardest_contrastive_loss(
+            generator, f0_flat, f1_flat, src, tgt, pmask, m0, m1,
+            num_pos=c.num_pos_per_batch * c.batch_size,
+            num_hn_samples=c.num_hn_samples_per_batch * c.batch_size,
+            pos_thresh=c.pos_thresh, neg_thresh=c.neg_thresh)
+
+    def _generative_branch(self, feats, pyramid, apc, apc_mask, train):
+        """Sum over the batch's clouds of (chamfer + reg * strength) *
+        loss_ratio, with the summed chamfer and reg and the mean clamp
+        fraction; every cloud in one batched call."""
+        c = self.config
+        mask = pyramid.levels[0].mask                  # [B, C0]
+        self.generator.train(train)
+        try:
+            mlp_out = self.generator(feats, mask)      # [B, C0, ratio*3]
+        finally:
+            self.generator.train(False)
+        anchors = pyramid.levels[0].coords.float() * c.voxel_size
+        totals, cds, regs, clamps = npr_reconstruction(
+            mlp_out, anchors, apc, mask, apc_mask,
+            voxel_size=c.voxel_size, reg_type=c.regularization_type,
+            reg_strength=c.regularization_strength, alpha=c.alpha,
+            chamfer_mode=c.chamfer_mode,
+            chamfer_cell_size=c.chamfer_cell_multiplier * c.voxel_size)
+        return (totals.sum() * c.loss_ratio, cds.sum(), regs.sum(),
+                clamps.mean())
+
+    # --- the train step -------------------------------------------------
+
+    def loss_fn(self, batch: PairBatch,
+                generator: Optional[torch.Generator] = None,
+                train: bool = True, return_feats: bool = False):
+        """(loss, metrics) or (loss, metrics, (f0, f1)); train mode
+        updates the running stats of every norm in place."""
+        c = self.config
+        f0, f1 = self._encode_pair(batch, train)
+        b, n, ch = f0.shape
+        m0 = batch.pyramid0.levels[0].mask.reshape(-1)
+        m1 = batch.pyramid1.levels[0].mask.reshape(-1)
+        src, tgt, pmask = _flatten_pairs(batch.pos_src, batch.pos_tgt,
+                                         batch.pos_mask, n)
+        pos_loss, neg_loss = self._contrastive(
+            generator, f0.reshape(b * n, ch), f1.reshape(b * n, ch), src,
+            tgt, pmask, m0, m1)
+        loss = pos_loss + c.neg_weight * neg_loss
+        metrics = {"pos_loss": pos_loss, "neg_loss": neg_loss}
+        if self.generative:
+            gen0, cd0, reg0, clamp0 = self._generative_branch(
+                f0, batch.pyramid0, batch.apc0, batch.apc0_mask, train)
+            gen1, cd1, reg1, clamp1 = self._generative_branch(
+                f1, batch.pyramid1, batch.apc1, batch.apc1_mask, train)
+            loss = loss + gen0 + gen1
+            metrics.update(chamfer_loss=cd0 + cd1,
+                           regularization_loss=reg0 + reg1,
+                           chamfer_clamp_frac=0.5 * (clamp0 + clamp1))
+        metrics["loss"] = loss
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if return_feats:
+            return loss, metrics, (f0, f1)
+        return loss, metrics
+
+    def train_step(self, batch: PairBatch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One optimization step on ``batch``; ``generator`` draws the
+        contrastive samples.  Returns the metrics, with
+        ``skipped_nonfinite`` 1.0 when the loss or a gradient was not
+        finite: then parameters, optimizer state and running stats all stay
+        as they were (the reference's validate_gradient gate)."""
+        saved = [b.clone() for b in self.buffers()]
+        params = self.parameters()
+        self.optimizer.zero_grad(set_to_none=False)
+        loss, metrics = self.loss_fn(batch, generator, train=True)
+        loss.backward()
+        for p in params:
+            if p.grad is None:   # weight decay reaches every parameter
+                p.grad = torch.zeros_like(p)
+        finite = torch.isfinite(loss) & torch.stack(
+            [torch.isfinite(p.grad).all() for p in params]).all()
+        if bool(finite):
+            self.optimizer.step()
+        else:
+            with torch.no_grad():
+                for b, old in zip(self.buffers(), saved):
+                    b.copy_(old)
+        self.step += 1
+        metrics["skipped_nonfinite"] = 1.0 - finite.float()
+        return metrics
+
+    def build_batch(self, raw: Tuple) -> PairBatch:
+        """Device batch from the nine padded arrays (points0, mask0,
+        points1, mask1, apc0, apc0_mask, apc1, apc1_mask, t_gt)."""
+        c = self.config
+        return make_pair_batch(
+            *raw, voxel_size=c.voxel_size, capacities=tuple(c.capacities),
+            conv1_kernel_size=c.conv1_kernel_size,
+            corr_cap=c.corr_capacity_per_point,
+            search_multiplier=c.positive_pair_search_voxel_size_multiplier,
+            device=self.device)
+
+    # --- validation -----------------------------------------------------
+
+    @torch.no_grad()
+    def valid_step(self, batch: PairBatch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Loss plus matching and registration metrics: feature NN, robust
+        IRLS pose, RTE / RRE, hit ratio and feature-match ratio (running
+        stats, no update)."""
+        c = self.config
+        _, metrics, (f0, f1) = self.loss_fn(batch, generator, train=False,
+                                            return_feats=True)
+        m0 = batch.pyramid0.levels[0].mask
+        m1 = batch.pyramid1.levels[0].mask
+        hrs, rtes, rres = [], [], []
+        for i in range(f0.shape[0]):
+            corr = feature_nn_correspondences(f0[i], f1[i], m0[i], m1[i])
+            xyz1 = batch.xyz1[i]
+            tgt_pts = xyz1[corr.tgt_idx.clamp(0, xyz1.shape[0] - 1).long()]
+            hrs.append(hit_ratio(batch.xyz0[i], tgt_pts, batch.t_gt[i],
+                                 c.hit_ratio_thresh, corr.mask))
+            t_est = est_rigid_robust(batch.xyz0[i], tgt_pts,
+                                     corr.mask.float())
+            rte, rre = registration_errors(t_est, batch.t_gt[i])
+            rtes.append(rte)
+            rres.append(rre)
+        hrs, rtes, rres = (torch.stack(v) for v in (hrs, rtes, rres))
+        metrics.update(
+            hit_ratio=hrs.mean(),
+            feat_match_ratio=(hrs > 0.05).float().mean(),
+            rte=rtes.mean(),
+            # a non-finite RRE (degenerate pose fit) counts as the worst
+            # rotation, not a perfect one
+            rre=torch.where(torch.isfinite(rres), rres, 180.0).mean(),
+            success=((rtes < c.rte_thresh) & (rres < c.rre_thresh))
+            .float().mean())
+        return metrics

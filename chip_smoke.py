@@ -12,12 +12,26 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    contract cases, (b) the seven searches of a full-capacity pyramid
    build batched over 8 clouds, with kernel / plain / torch.searchsorted
    times and the memory bound per shape;
-4. pyramid: the fast kernel maps (through K1) equal the slow oracles;
+4. pyramid: the fast kernel maps (through K1) and the transposed up maps
+   equal the slow oracles;
 5. encoder: ResUNetFatBN in float32 on the card against the CPU, and the
    bf16 deviation;
 6. RANSAC on a ground-truth correspondence set with 50% outliers;
-7. the slice: FeatureTester.test on 8 synthetic pairs at full width, with
-   K1's launch count read around it, and a per-stage time split.
+7. the eval slice: FeatureTester.test on 8 synthetic pairs at full width,
+   with K1's launch count read around it, and a per-stage time split;
+8. K1 at the eval path's shapes;
+9. kernel K2 (nn_min) against its plain version, exact in d2 and idx, on
+   the contract cases;
+10. the training slice: FCGFTrainer.train_step at full width (ResUNetFatBN
+   128, bf16, B=4, APC 65536, chamfer_mode="pallas") for TRAIN_STEPS steps
+   with the launch counts of K1 and K2 read around them, a per-stage time
+   split, one step in chamfer_mode="window" and one valid_step;
+11. K2 at the train step's shapes: its four launches of one step against the
+   plain version (exact) with kernel / plain / torch.cdist times and the
+   bound;
+12. one float32 train step at a small size, card against CPU, from the same
+   weights and the same contrastive samples, and the same step with a
+   planted backward fault, which the check must catch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -41,9 +55,26 @@ N_PAIRS = 8
 SUBSAMPLE = 5000
 HYPOTHESES = 32768
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+# H100 SXM float32 outside the tensor cores: 67 TFLOP/s counts a fused
+# multiply-add as two operations, so 3.35e13 instructions a second; K2's
+# subtractions, products and sums cannot fuse and count one each
+FP32_OPS_PER_S = 3.35e13
+K2_OPS_PER_PAIR = 8              # 3 subtractions, 3 products, 2 sums
 ENC_F32_TOL = 1e-4               # abs, on unit-norm float32 features
-KERNEL_SOURCE = "apr_torch/csrc/searchsorted.cu"
-KERNEL_REPLACES = "apr_tpu/ops/pallas/searchsorted.py:116"
+# phase 12: max |card - CPU| over max |CPU| within each gradient leaf, that
+# maximum raised by GRAD_FLOOR of the largest gradient of all leaves
+GRAD_TOL = 0.1
+GRAD_FLOOR = 1e-5
+# the training slice: apr_tpu/config.py's defaults, with the Chamfer that
+# runs kernel K2
+TRAIN_FIELDS = dict(chamfer_mode="pallas")
+TRAIN_STEPS = 5
+TRAIN_POINTS = 30000
+TRAIN_APC_POINTS = 60000
+K1 = dict(name="searchsorted_left", source="apr_torch/csrc/searchsorted.cu",
+          replaces="apr_tpu/ops/pallas/searchsorted.py:116")
+K2 = dict(name="nn_min", source="apr_torch/csrc/nn_min.cu",
+          replaces="apr_tpu/ops/pallas/distance.py:86")
 
 
 def phase(name):
@@ -51,9 +82,11 @@ def phase(name):
     return time.perf_counter()
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up."""
-    fn()
+def cuda_ms(fn, reps, warmup=True):
+    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up
+    (skipped for a call that takes seconds and needs none)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -74,7 +107,7 @@ def tree_map(fn, *trees):
             else tuple(items))
 
 
-def profiled(fn, x):
+def profiled(fn, x, inference=True):
     """Run ``fn(x)`` under torch.profiler; returns (result, card busy ms,
     kernel count, the three longest kernels by total time).  Busy time is
     the sum of the device activities' durations (one stream: they do not
@@ -84,7 +117,7 @@ def profiled(fn, x):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with torch.inference_mode():
+        with torch.inference_mode(inference):
             out = fn(x)
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events()
@@ -189,6 +222,326 @@ def contract_cases():
     return cases
 
 
+def k2_contract_cases():
+    """(name, queries [B, Nq, 3], supports [B, Ns, 3], s_mask [B, Ns]) as
+    numpy: the cases of tests/test_pallas_distance.py and
+    tests/test_torch_distance.py, with sizes that are not multiples of the
+    kernel's 512-query block or its 2048-support tile."""
+    rng = np.random.default_rng(2)
+
+    def grid(*shape):      # multiples of 1/8: exact products, many ties
+        return (rng.integers(-32, 32, shape) / 8.0).astype(np.float32)
+
+    def lidar(*shape):
+        return rng.uniform(-80, 80, shape).astype(np.float32)
+
+    some = np.zeros((1, 5000), bool)
+    some[0, rng.choice(5000, 700, replace=False)] = True
+    return [
+        ("grid values, ties", grid(1, 1000, 3), grid(1, 4500, 3),
+         np.ones((1, 4500), bool)),
+        ("LiDAR-scale floats", lidar(1, 3000, 3), lidar(1, 5000, 3),
+         np.ones((1, 5000), bool)),
+        ("masked supports", lidar(1, 2000, 3), lidar(1, 5000, 3), some),
+        ("all supports masked", lidar(1, 700, 3), lidar(1, 3000, 3),
+         np.zeros((1, 3000), bool)),
+        ("ragged 513 x 2049", grid(1, 513, 3), grid(1, 2049, 3),
+         rng.random((1, 2049)) > 0.3),
+        ("B=3, own masks", grid(3, 1500, 3), lidar(3, 2500, 3),
+         rng.random((3, 2500)) > np.array([[0.0], [0.6], [1.0]])),
+        ("one support, one query", lidar(2, 1, 3), lidar(2, 1, 3),
+         np.array([[True], [False]])),
+    ]
+
+
+def k2_check(q, s, m, what):
+    """K2 against its plain version on the card: d2 bit for bit, idx
+    exactly.  Returns the kernel's (d2, idx) and the largest absolute d2
+    difference (0 where both are inf)."""
+    from apr_torch.ops.distance import nn_min, nn_min_plain
+
+    d2, idx = nn_min(q, s, m)
+    want_d2, want_idx = nn_min_plain(q, s, m)
+    err = float((d2 - want_d2).abs().nan_to_num(0.0).max())
+    same_d2 = torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))
+    if not (same_d2 and torch.equal(idx, want_idx)):
+        bad = int((idx != want_idx).sum())
+        raise AssertionError(f"K2 disagrees with its plain version on "
+                             f"{what}: {bad} indices differ, d2 max abs err "
+                             f"{err:.3e}")
+    return d2, idx, err
+
+
+def k2_inputs(trainer, batch):
+    """The four (name, queries, supports, s_mask, q_mask) that the "pallas"
+    Chamfer
+    of one train step on ``batch`` hands K2: per side, the reconstruction
+    (generator offsets on the voxel anchors, as losses/generative.py forms
+    it) against the APC targets, and back."""
+    c = trainer.config
+    out = []
+    with torch.no_grad():
+        feats = trainer._encode_pair(batch)
+        sides = ((batch.pyramid0, batch.apc0, batch.apc0_mask),
+                 (batch.pyramid1, batch.apc1, batch.apc1_mask))
+        for side, f, (pyr, apc, apc_mask) in zip((0, 1), feats, sides):
+            mask = pyr.levels[0].mask
+            b, n = mask.shape
+            offsets = trainer.generator(f, mask) * c.voxel_size
+            r = offsets.shape[-1] // 3
+            anchors = pyr.levels[0].coords.float() * c.voxel_size
+            recon = (offsets.reshape(b, n, r, 3) + anchors[:, :, None]
+                     ).reshape(b, n * r, 3).contiguous()
+            recon_mask = mask.repeat_interleave(r, dim=1)
+            apc, apc_mask = apc.contiguous(), apc_mask.contiguous()
+            out += [(f"side {side} recon->APC", recon, apc, apc_mask,
+                     recon_mask),
+                    (f"side {side} APC->recon", apc, recon, recon_mask,
+                     apc_mask)]
+    return out
+
+
+def library_nn(q, s, m, chunk=4096):
+    """The yardstick: torch.cdist (direct differences, no matmul
+    expansion) and a masked min, in row chunks that keep [B, chunk, Ns]
+    within a few GB."""
+    for i in range(0, q.shape[1], chunk):
+        d = torch.cdist(q[:, i:i + chunk], s,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        torch.where(m[:, None, :], d, float("inf")).min(dim=2)
+
+
+def time_k2(inputs):
+    """Per launch: exactness against the plain version, kernel / plain /
+    library times and the operations bound over the valid pairs (the
+    kernel also computes the padding rows; the bound does not count
+    them)."""
+    from apr_torch.ops.distance import nn_min, nn_min_plain
+
+    rows = []
+    for name, q, s, m, qm in inputs:
+        err = k2_check(q, s, m, name)[2]
+        pairs = int((qm.sum(1).double() * m.sum(1).double()).sum())
+        nbytes = (q.numel() + s.numel()) * 4 + m.numel() + q.shape[0] * \
+            q.shape[1] * 8
+        bound_ms = max(pairs * K2_OPS_PER_PAIR / FP32_OPS_PER_S,
+                       nbytes / HBM_BYTES_PER_S) * 1e3
+        rows.append(dict(
+            name=name, B=q.shape[0], Nq=q.shape[1], Ns=s.shape[1],
+            valid_pairs=pairs, max_abs_err=err,
+            ms=cuda_ms(lambda: nn_min(q, s, m), 5),
+            plain_ms=cuda_ms(lambda: nn_min_plain(q, s, m), 1),
+            library_ms=cuda_ms(lambda: library_nn(q, s, m), 1,
+                               warmup=False),
+            bound_ms=bound_ms))
+        r = rows[-1]
+        print(f"  {name:20s} B={r['B']} Nq={r['Nq']} Ns={r['Ns']} valid "
+              f"pairs {pairs:.3e}  kernel {r['ms']:8.3f} ms  plain "
+              f"{r['plain_ms']:8.3f} ms  cdist+min {r['library_ms']:8.3f} "
+              f"ms  bound {bound_ms:7.3f} ms  exact", flush=True)
+    return rows
+
+
+def train_pairs(n):
+    from apr_torch.data.synthetic import synthetic_pair
+
+    return [synthetic_pair(seed=100 + s, n_points=TRAIN_POINTS,
+                           apc_points=TRAIN_APC_POINTS, distance=10.0)
+            for s in range(n)]
+
+
+def raw_batch(pairs, cfg):
+    """The nine padded arrays of one batch (points, masks, APC, t_gt)."""
+    from apr_torch.data.synthetic import pad_points
+
+    def stack(key, cap):
+        ps, ms = zip(*[pad_points(p[key], cap) for p in pairs])
+        return np.stack(ps), np.stack(ms)
+
+    p0, m0 = stack("points0", cfg.point_capacity)
+    p1, m1 = stack("points1", cfg.point_capacity)
+    a0, am0 = stack("apc0", cfg.apc_capacity)
+    a1, am1 = stack("apc1", cfg.apc_capacity)
+    return (p0, m0, p1, m1, a0, am0, a1, am1,
+            np.stack([p["t_gt"] for p in pairs]))
+
+
+def replay_samples(seed):
+    """Patch the hardest-contrastive sampler so that the i-th of the three
+    draws of every loss takes the i-th of three numpy score vectors (made
+    at first use): the same samples on the card and on the CPU.  Returns
+    the function that undoes the patch."""
+    from apr_torch.losses import contrastive
+
+    orig = contrastive._sample_without_replacement
+    rng = np.random.default_rng(seed)
+    scores, calls = [], [0]
+
+    def sample(generator, mask, num):
+        i = calls[0] % 3
+        calls[0] += 1
+        if i == len(scores):
+            scores.append(rng.random(mask.shape[0]).astype(np.float32))
+        return contrastive.top_valid(
+            torch.from_numpy(scores[i]).to(mask.device), mask, num)
+
+    contrastive._sample_without_replacement = sample
+    return lambda: setattr(contrastive, "_sample_without_replacement", orig)
+
+
+def step_grads(trainer, batch):
+    """Loss terms, gradients and running stats after one float32 forward
+    and backward on ``batch``, with the replayed contrastive samples.
+
+    FCGF features of voxels with the same neighbourhood are equal, so two
+    sampled candidates can tie exactly as an anchor's hardest negative,
+    and the card and the CPU may break such a tie differently.  The
+    samples' seed is one whose hardest negatives (of compare_train_step's
+    batch and weights) all lead the runner-up by more than 1e-4
+    relative."""
+    undo = replay_samples(seed=9)
+    try:
+        trainer.optimizer.zero_grad(set_to_none=False)
+        loss, metrics = trainer.loss_fn(batch, None, train=True)
+        loss.backward()
+    finally:
+        undo()
+    return dict(
+        metrics={n: float(v) for n, v in metrics.items()},
+        grads={f"{tag}.{k}": p.grad.to("cpu", copy=True) for tag, m in
+               (("encoder", trainer.encoder), ("generator", trainer.generator))
+               for k, p in m.named_parameters()},
+        stats={f"{i}.{n}": b.to("cpu", copy=True)
+               for i, m in enumerate(trainer.modules())
+               for n, b in m.named_buffers()})
+
+
+def planted_fault():
+    """Patch the encoder's convs to drop the same-level backward's offset
+    flip (reverse_k): a wrong transpose map, which the card-vs-CPU gradient
+    check must catch.  Returns the function that undoes the patch."""
+    from apr_torch.models import resunet
+
+    orig = resunet.sparse_conv_adjoint
+
+    def faulty(feats, table, table_t, weights, out_mask, in_mask, reverse_k,
+               compute_dtype):
+        return orig(feats, table, table_t, weights, out_mask, in_mask, False,
+                    compute_dtype)
+
+    resunet.sparse_conv_adjoint = faulty
+    return lambda: setattr(resunet, "sparse_conv_adjoint", orig)
+
+
+def train_step_readings(dev):
+    """One float32 train step at a small size from the same weights, batch
+    (built on the CPU) and contrastive samples: ``(cpu, card, card_again,
+    nudged, faulted)``, each as step_grads returns it.  ``nudged`` is the
+    CPU after a 1e-6 relative nudge of the weights; ``faulted`` the card
+    with planted_fault."""
+    from apr_torch.config import APRConfig
+    from apr_torch.data.synthetic import synthetic_pair
+    from apr_torch.training.trainer import FCGFTrainer
+
+    cfg = APRConfig(model_n_out=32, compute_dtype="float32", batch_size=2,
+                    point_capacity=8192, capacities=(2048, 1024, 512, 256),
+                    apc_capacity=4096, num_pos_per_batch=256,
+                    num_hn_samples_per_batch=64, chamfer_mode="pallas")
+    pairs = [synthetic_pair(seed=200 + s, n_points=6000, apc_points=4000,
+                            distance=5.0, extent=20.0) for s in range(2)]
+    cpu = FCGFTrainer(cfg, device="cpu", seed=1)
+    batch = cpu.build_batch(raw_batch(pairs, cfg))
+
+    def card_step(fault):
+        card = FCGFTrainer(cfg, device=dev, seed=2)
+        for a, b in zip(card.modules(), cpu.modules()):
+            a.load_state_dict(b.state_dict())
+        undo = planted_fault() if fault else (lambda: None)
+        try:
+            return step_grads(card, tree_map(lambda x: x.to(dev), batch))
+        finally:
+            undo()
+
+    runs = [card_step(False), card_step(False), card_step(True)]
+    before = [{k: v.clone() for k, v in m.state_dict().items()}
+              for m in cpu.modules()]
+    c = step_grads(cpu, batch)
+    for m, state in zip(cpu.modules(), before):
+        m.load_state_dict(state)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.mul_(1.0 + 1e-6 * torch.randn(p.shape, generator=gen))
+    return c, runs[0], runs[1], step_grads(cpu, batch), runs[2]
+
+
+def leaf_errors(c, *others):
+    """Per tensor of ``c``'s grads and stats: (kind, name, share, errors),
+    share being the tensor's largest entry over the largest of its kind and
+    each error max |other - c| over that tensor's largest entry, plus, for
+    gradients, GRAD_FLOOR of the largest gradient (the biases of convs
+    followed by batch norm have an analytically zero gradient)."""
+    out = []
+    for kind, floor in (("grads", GRAD_FLOOR), ("stats", 0.0)):
+        top = max(float(v.abs().max()) for v in c[kind].values())
+        for n, want in c[kind].items():
+            scale = max(float(want.abs().max()) + floor * top, 1e-30)
+            out.append((kind, n, float(want.abs().max()) / top,
+                        [float((o[kind][n] - want).abs().max()) / scale
+                         for o in others]))
+    return out
+
+
+def compare_train_step(dev):
+    """One float32 train step's loss terms, gradients and updated running
+    stats on the card against the CPU (train_step_readings).
+
+    Each tensor is held to max |card - CPU| <= tol * max |CPU| over that
+    tensor alone (leaf_errors): loss terms and running stats (the forward)
+    with tol 1e-4, each gradient leaf with GRAD_TOL.  The backward is
+    ill-conditioned at float32 rounding: ReLUs at their kink, and Chamfer
+    neighbours and hardest negatives that nearly tie, switch under a change
+    of the last bit, and on a coarse level one switch moves a visible share
+    of a leaf.  The phase prints, beside the card's difference, the CPU's
+    own change under a 1e-6 relative nudge of the weights, a second card
+    run's difference and the difference that a planted backward fault
+    makes, and fails unless the gradient check catches that fault."""
+    c, card, again, nudged, faulted = train_step_readings(dev)
+    print("  " + "  ".join(f"{n} cpu {c['metrics'][n]:.7g} card "
+                           f"{card['metrics'][n]:.7g}"
+                           for n in c["metrics"]))
+    bad = [f"loss term {n}" for n, v in c["metrics"].items()
+           if not abs(card["metrics"][n] - v) <= 1e-4 * abs(v) + 1e-6]
+    errs = leaf_errors(c, card, nudged, again, faulted)
+    for kind, tol in (("grads", GRAD_TOL), ("stats", 1e-4)):
+        rows = sorted(((e, n, share) for k, n, share, e in errs
+                       if k == kind), reverse=True)
+        bad += [f"{kind} {n}" for e, n, _ in rows if not e[0] <= tol]
+        print(f"  {kind} (tolerance {tol:g} of each tensor's largest entry): "
+              f"the largest card-CPU differences; beside them the CPU's own "
+              f"change under a 1e-6 nudge of the weights, a second card "
+              f"run's difference and the planted fault's:")
+        for e, n, share in rows[:6]:
+            print(f"    {n:36s} card {e[0]:.2e}  nudged CPU {e[1]:.2e}  card "
+                  f"again {e[2]:.2e}  fault {e[3]:.2e}  (leaf {share:.1e} of "
+                  f"the largest)")
+        print(f"    largest over all {len(rows)}: " + "  ".join(
+            f"{what} {max(e[i] for e, _, _ in rows):.2e}" for i, what in
+            enumerate(("card", "nudged CPU", "card again", "fault"))))
+    caught = sorted((e[3], n) for k, n, _, e in errs
+                    if k == "grads" and e[3] > GRAD_TOL)
+    print(f"  planted fault (no reverse_k flip): {len(caught)} of "
+          f"{len(c['grads'])} gradient leaves beyond tolerance; largest "
+          + ", ".join(f"{n} {e:.2e}" for e, n in caught[::-1][:3]))
+    if bad:
+        raise AssertionError(f"card and CPU differ beyond tolerance: {bad}")
+    if not caught:
+        raise AssertionError("the gradient check does not catch the planted "
+                             "fault")
+    print(f"  {len(c['grads'])} gradients, {len(c['stats'])} running stats "
+          f"and the loss terms agree")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "apr_torch")):
         sys.exit("chip_smoke.py: apr_torch/ not found next to this script; "
@@ -251,7 +604,7 @@ def main():
     from apr_torch.data.synthetic import pad_points, synthetic_pair
     from apr_torch.models.sparse import SparseLevel, \
         build_pyramid_from_level, downsample_level, kernel_map_down, \
-        kernel_map_same
+        kernel_map_same, kernel_map_up
     from apr_torch.ops.voxelize import voxelize_lean
 
     caps = CAPS
@@ -284,6 +637,8 @@ def main():
     for l in range(3):
         checks.append((f"down L{l}->L{l + 1}", pyr.down_maps[l],
                        kernel_map_down(levels[l + 1], levels[l], 3)))
+        checks.append((f"up L{l + 1}->L{l}", pyr.up_maps[l],
+                       kernel_map_up(levels[l], levels[l + 1], 3)))
     for name, fast, slow in checks:
         if not torch.equal(fast, slow):
             raise AssertionError(f"kernel map {name} differs from the "
@@ -417,20 +772,175 @@ def main():
                     batch.pyramid1.levels)
     rows = time_searches(searches_of(both, 5))
     max_err = max([max_err] + [r["max_abs_err"] for r in rows + rows8])
-    record = {"kernels": [{
-        "name": "searchsorted_left",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": "bytes",
-        "library_ms": sum(r["library_ms"] for r in rows),
-    }]}
     print("  (the record's times are sums over these 7 searches)")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase("9 K2 contract cases (kernel vs plain, d2 bit for bit, idx "
+              "exact)")
+    from apr_torch.ops.distance import nn_min
+
+    k2_err = 0.0
+    for name, q, s, m in k2_contract_cases():
+        d2, idx, err = k2_check(
+            *(torch.from_numpy(x).to(dev) for x in (q, s, m)), name)
+        k2_err = max(k2_err, err)
+        none = torch.from_numpy(~m.any(1)).to(dev)
+        if (bool((idx[none] != s.shape[1]).any())
+                or not bool(torch.isinf(d2[none]).all())):
+            raise AssertionError(f"K2 on {name}: a query with no valid "
+                                 f"support must get (inf, Ns)")
+        print(f"  {name}: B={q.shape[0]} Nq={q.shape[1]} Ns={s.shape[1]} "
+              f"exact")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase("10 training slice: FCGFTrainer.train_step, ResUNetFatBN-128 "
+              "bf16, B=4, chamfer_mode=pallas")
+    from dataclasses import replace
+
+    cfg_t = APRConfig(**TRAIN_FIELDS)
+    print(f"  {cfg_t.trainer} {cfg_t.model}-{cfg_t.model_n_out} conv1 "
+          f"{cfg_t.conv1_kernel_size}^3 {cfg_t.compute_dtype} B="
+          f"{cfg_t.batch_size} caps {cfg_t.capacities} points "
+          f"{cfg_t.point_capacity} APC {cfg_t.apc_capacity} "
+          f"{cfg_t.generator_model} ratio {cfg_t.point_generation_ratio} "
+          f"{cfg_t.optimizer} lr {cfg_t.lr} momentum {cfg_t.sgd_momentum} "
+          f"wd {cfg_t.weight_decay} chamfer {cfg_t.chamfer_mode}")
+    t0 = time.perf_counter()
+    b_t = cfg_t.batch_size
+    tpairs = train_pairs(2 * b_t)
+    raws = [raw_batch(tpairs[:b_t], cfg_t), raw_batch(tpairs[b_t:], cfg_t)]
+    print(f"  {len(tpairs)} synthetic pairs ({TRAIN_POINTS} points, "
+          f"{TRAIN_APC_POINTS} APC points) made on the host in "
+          f"{time.perf_counter() - t0:.1f} s (set-up, not timed below)")
+    trainer_t = FCGFTrainer(cfg_t, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    searchsorted_left.launches = 0
+    nn_min.launches = 0
+    step_s, step_metrics, positives = [], [], []
+    for k in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch_t = trainer_t.build_batch(raws[k % 2])
+        metrics = trainer_t.train_step(batch_t, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_metrics.append({n: float(v) for n, v in metrics.items()})
+        positives.append(int(batch_t.pos_mask.sum()))
+    k1_train, k2_train = searchsorted_left.launches, nn_min.launches
+    for k, (sec, m, n_pos) in enumerate(zip(step_s, step_metrics,
+                                            positives)):
+        print(f"  step {k}: {sec * 1e3:9.1f} ms  positives {n_pos}  " +
+              "  ".join(f"{n} {v:.6g}" for n, v in m.items()))
+    steps_per_s = (TRAIN_STEPS - 1) / sum(step_s[1:])
+    print(f"  steps/s {steps_per_s:.3f}  pairs/s {steps_per_s * b_t:.3f} "
+          f"(build + step, synchronised, steps 2-{TRAIN_STEPS})  peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB")
+    print(f"  K1 launches {k1_train} ({k1_train / TRAIN_STEPS:.0f} per "
+          f"step), K2 launches {k2_train} ({k2_train / TRAIN_STEPS:.0f} per "
+          f"step)")
+    if not all(np.isfinite(v) for m in step_metrics for v in m.values()):
+        raise AssertionError("a train step gave a non-finite loss term")
+    if any(m["skipped_nonfinite"] != 0.0 for m in step_metrics):
+        raise AssertionError("a train step was skipped as non-finite")
+    if min(positives) <= 0:
+        raise AssertionError("a training batch has no GT positive pair")
+    if k2_train != 4 * TRAIN_STEPS:
+        raise AssertionError(f"K2 launched {k2_train} times in "
+                             f"{TRAIN_STEPS} steps; the pallas Chamfer "
+                             f"takes 4 per step (2 sides x 2 directions)")
+    if k1_train < 7 * TRAIN_STEPS:
+        raise AssertionError("the train step's batch builds did not run "
+                             "every kernel map through K1")
+
+    # one step by stage, synchronised at each boundary: wall time (second
+    # repetition), then a profiled repetition for busy time and launches
+    def forward(batch):
+        trainer_t.optimizer.zero_grad(set_to_none=False)
+        return trainer_t.loss_fn(batch, gen, train=True)
+
+    stages = dict(build=lambda _: trainer_t.build_batch(raws[0]),
+                  forward=forward,
+                  backward=lambda out: out[0].backward(),
+                  optimizer=lambda _: trainer_t.optimizer.step())
+    wall = {}
+    for rep in range(3):
+        x = None
+        for name, fn in stages.items():
+            if rep < 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = fn(x)
+                torch.cuda.synchronize()
+                wall[name] = (time.perf_counter() - t0) * 1e3
+            else:
+                x, busy, n_kern, top = profiled(fn, x, inference=False)
+                print(f"  {name:9s} wall {wall[name]:8.2f} ms  card busy "
+                      f"{busy:8.2f} ms (idle share "
+                      f"{1 - busy / wall[name]:.2f})  kernels {n_kern}  "
+                      f"top: {top}")
+    print(f"  step total {sum(wall.values()):.2f} ms (wall, synchronised "
+          f"per stage)")
+
+    cfg_w = replace(cfg_t, chamfer_mode="window")
+    trainer_t.config = cfg_w
+    nn_min.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = {n: float(v) for n, v in trainer_t.train_step(
+        trainer_t.build_batch(raws[1]), gen).items()}
+    torch.cuda.synchronize()
+    print(f"  window-mode step: {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+          + "  ".join(f"{n} {v:.6g}" for n, v in metrics.items()))
+    if not (all(np.isfinite(v) for v in metrics.values())
+            and metrics["skipped_nonfinite"] == 0.0):
+        raise AssertionError("the window-mode step failed")
+    if nn_min.launches != 0:
+        raise AssertionError("window mode launched K2")
+    trainer_t.config = cfg_t
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    valid = {n: float(v) for n, v in trainer_t.valid_step(
+        trainer_t.build_batch(raws[0]), gen).items()}
+    torch.cuda.synchronize()
+    print(f"  valid_step: {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+          + "  ".join(f"{n} {v:.6g}" for n, v in valid.items()))
+    if not all(np.isfinite(v) for v in valid.values()):
+        raise AssertionError("valid_step gave a non-finite metric")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase("11 K2 at the train step's shapes (the 4 launches of a step)")
+    k2_rows = time_k2(k2_inputs(trainer_t, trainer_t.build_batch(raws[0])))
+    print(f"  per step: kernel {sum(r['ms'] for r in k2_rows):.3f} ms  "
+          f"plain {sum(r['plain_ms'] for r in k2_rows):.3f} ms  cdist+min "
+          f"{sum(r['library_ms'] for r in k2_rows):.3f} ms  bound "
+          f"{sum(r['bound_ms'] for r in k2_rows):.3f} ms")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase("12 train step, card vs CPU (float32, small, same weights and "
+              "samples)")
+    compare_train_step(dev)
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    record = {"kernels": [
+        dict(K1, route="cuda", launches=launches + k1_train,
+             launches_by_path={"eval": launches, "train": k1_train},
+             max_abs_err=max_err,
+             ms=sum(r["ms"] for r in rows),
+             plain_ms=sum(r["plain_ms"] for r in rows),
+             bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes",
+             library_ms=sum(r["library_ms"] for r in rows)),
+        dict(K2, route="cuda", launches=k2_train,
+             max_abs_err=max([k2_err] + [r["max_abs_err"] for r in k2_rows]),
+             ms=sum(r["ms"] for r in k2_rows),
+             plain_ms=sum(r["plain_ms"] for r in k2_rows),
+             bound_ms=sum(r["bound_ms"] for r in k2_rows),
+             bound_by="operations",
+             library_ms=sum(r["library_ms"] for r in k2_rows)),
+    ]}
+    print("(K1's times: the 7 searches of one eval batch build; K2's: the 4 "
+          "launches of one train step)")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps(record))

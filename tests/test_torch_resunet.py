@@ -134,12 +134,22 @@ def test_masked_moments_match(rng, axes):
                                    atol=1e-6)
 
 
-def test_batch_norm_train_mode_is_not_ported_yet():
+def test_batch_norm_train_mode_ignores_padding_rows():
+    """A padding row, however large, moves neither the batch moments nor
+    the running stats, and comes out zero (tests/test_torch_train_units.py
+    holds train mode against the reference on random inputs)."""
     from apr_torch.models.layers import MaskedBatchNorm
 
-    bn = MaskedBatchNorm(4)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        bn(torch.zeros(1, 3, 4), torch.ones(1, 3, dtype=torch.bool))
+    bn = MaskedBatchNorm(4, momentum=0.5)
+    x = torch.arange(12, dtype=torch.float32).reshape(1, 3, 4)
+    x[0, 2] = 1e6
+    mask = torch.tensor([[True, True, False]])
+    y = bn(x, mask)
+    torch.testing.assert_close(y[0, :2], torch.tensor([[-1.0] * 4, [1.0] * 4]),
+                               rtol=0, atol=1e-4)
+    assert (y[0, 2] == 0).all()
+    torch.testing.assert_close(bn.mean, torch.arange(2.0, 6.0) * 0.5)
+    torch.testing.assert_close(bn.var, torch.full((4,), 0.5 + 0.5 * 4.0))
 
 
 def test_bridge_rejects_a_leaf_mapped_twice():
