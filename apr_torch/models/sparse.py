@@ -4,7 +4,8 @@ gather-matmul sparse convolution, over a leading batch of clouds.
 The port of ``apr_tpu/models/sparse.py``.  Each level keeps its voxels as a
 sorted row of packed int32 keys (``apr_torch.ops.hashing``); kernel maps
 are batched binary searches into those rows (kernel K1,
-``apr_torch.ops.searchsorted``), and the sparse convolution is one gather
+``apr_torch.ops.searchsorted``; one grouped launch for every map of a
+pyramid build), and the sparse convolution is one gather
 plus one matmul.  Every map is a sentinel-padded int32 table: a missing
 neighbour points at the sentinel row (index == capacity), which carries
 zero features.  :func:`sparse_conv_adjoint` differentiates the conv with
@@ -26,7 +27,7 @@ import torch
 
 from apr_torch.ops.hashing import COORD_BITS, INVALID_KEY, pack_coords, \
     unpack_coords
-from apr_torch.ops.searchsorted import searchsorted_left
+from apr_torch.ops.searchsorted import searchsorted_left_many
 from apr_torch.ops.voxelize import unique_of_sorted
 
 
@@ -147,23 +148,34 @@ def zrun_queries(base_keys: torch.Tensor, base_coords: torch.Tensor,
     return torch.stack(t0s, dim=1), torch.stack(oks, dim=1)
 
 
-def _zrun_maps(support_keys: torch.Tensor, base_keys: torch.Tensor,
-               base_coords: torch.Tensor, base_mask: torch.Tensor,
-               kernel_size: int) -> torch.Tensor:
-    """All k^3 offset lookups from k^2 searches plus z-run decoding.
+class ZrunSearch(NamedTuple):
+    """One k^3 kernel map as the k^2 searches of its first-target keys."""
+
+    support: torch.Tensor  # int32 [B, S], the sorted keys searched
+    t0: torch.Tensor       # int32 [B, G, C], from zrun_queries
+    ok: torch.Tensor       # bool [B, G, C]
+    kernel_size: int
+
+
+def zrun_search(support_keys: torch.Tensor, base_keys: torch.Tensor,
+                base_coords: torch.Tensor, base_mask: torch.Tensor,
+                kernel_size: int) -> ZrunSearch:
+    """The searches of the k^3 map of ``base`` into ``support_keys``."""
+    t0, ok = zrun_queries(base_keys, base_coords, base_mask, kernel_size)
+    return ZrunSearch(support_keys.contiguous(), t0, ok, kernel_size)
+
+
+def zrun_decode(search: ZrunSearch, j0: torch.Tensor) -> torch.Tensor:
+    """All k^3 offset lookups from the k^2 insertion points j0 [B, G, C].
 
     Present targets of one (ox, oy) column occupy consecutive positions of
     the sorted support starting at j0 = searchsorted(support, t0); reading
     the k keys from j0 on decodes every oz slot.  Returns [B, K, C] in
     :func:`offsets_grid` order, sentinel S.
     """
+    support_keys, t0, ok, k = search
     b, s = support_keys.shape
-    c = base_keys.shape[1]
-    k = kernel_size
-    t0, ok = zrun_queries(base_keys, base_coords, base_mask, kernel_size)
-    g = t0.shape[1]
-    j0 = searchsorted_left(support_keys.contiguous(), t0)       # [B, G, C]
-
+    g, c = t0.shape[1:]
     # window [j0, j0 + k) of each column, read as one row of a [S, k]
     # matrix of shifted keys
     kst = torch.stack(
@@ -181,22 +193,29 @@ def _zrun_maps(support_keys: torch.Tensor, base_keys: torch.Tensor,
     return torch.stack(slots, dim=2).reshape(b, g * k, c)
 
 
-def kernel_map_same_fast(level: SparseLevel,
-                         kernel_size: int = 3) -> torch.Tensor:
-    """:func:`kernel_map_same` via the z-run decomposition, [B, C, K]
-    (out-of-field coords map to the sentinel instead of clipping)."""
-    maps = _zrun_maps(level.keys, level.keys, level.coords, level.mask,
-                      kernel_size)
-    return maps.transpose(1, 2)
-
-
-def kernel_map_down_fast(coarse: SparseLevel, fine: SparseLevel,
-                         kernel_size: int = 3) -> torch.Tensor:
-    """:func:`kernel_map_down` via the z-run decomposition, [B, C_c, K]."""
+def _down_search(coarse: SparseLevel, fine: SparseLevel,
+                 kernel_size: int) -> ZrunSearch:
     base = coarse.coords * 2
     base_keys = torch.where(coarse.mask, pack_coords(base), INVALID_KEY)
-    maps = _zrun_maps(fine.keys, base_keys, base, coarse.mask, kernel_size)
-    return maps.transpose(1, 2)
+    return zrun_search(fine.keys, base_keys, base, coarse.mask, kernel_size)
+
+
+def pyramid_searches(levels: Sequence[SparseLevel],
+                     conv1_kernel_size: int = 5
+                     ) -> List[Tuple[str, ZrunSearch]]:
+    """The searches of every map a pyramid build makes, by name: "conv1"
+    (the level-0 k1^3 map), "down{l}" (level l -> l+1), "same{l}" for the
+    coarser levels, and "same0" when conv1 does not cover the level-0 3^3
+    map (k1 < 3)."""
+    out = [("conv1", zrun_search(levels[0].keys, levels[0].keys,
+                                 levels[0].coords, levels[0].mask,
+                                 conv1_kernel_size))]
+    out += [(f"down{l}", _down_search(levels[l + 1], levels[l], 3))
+            for l in range(len(levels) - 1)]
+    first = 0 if conv1_kernel_size < 3 else 1
+    out += [(f"same{l}", zrun_search(lv.keys, lv.keys, lv.coords, lv.mask, 3))
+            for l, lv in enumerate(levels) if l >= first]
+    return out
 
 
 def transpose_kernel_map(down: torch.Tensor, n_fine: int,
@@ -231,22 +250,24 @@ def downsample_level(level: SparseLevel, capacity: int) -> SparseLevel:
 
 def build_pyramid_from_level(level0: SparseLevel, capacities: Sequence[int],
                              conv1_kernel_size: int = 5) -> SparsePyramid:
-    """The full coordinate pyramid and every kernel map from level 0."""
+    """The full coordinate pyramid and every kernel map from level 0: all
+    levels first, then the maps' searches in one grouped K1 launch."""
     assert capacities[0] == level0.keys.shape[1]
     levels: List[SparseLevel] = [level0]
     for cap in capacities[1:]:
         levels.append(downsample_level(levels[-1], cap))
 
-    down_maps = tuple(
-        kernel_map_down_fast(levels[l + 1], levels[l], 3)
-        for l in range(len(levels) - 1)
-    )
+    named = pyramid_searches(levels, conv1_kernel_size)
+    j0s = searchsorted_left_many([(s.support, s.t0) for _, s in named])
+    maps = {name: zrun_decode(s, j0).transpose(1, 2)
+            for (name, s), j0 in zip(named, j0s)}
+    down_maps = tuple(maps[f"down{l}"] for l in range(len(levels) - 1))
     up_maps = tuple(
         transpose_kernel_map(down_maps[l], n_fine=capacities[l],
                              n_coarse=capacities[l + 1])
         for l in range(len(levels) - 1)
     )
-    conv1_map = kernel_map_same_fast(levels[0], conv1_kernel_size)
+    conv1_map = maps["conv1"]
     # the level-0 3^3 same map is the central sub-block of the conv1 map
     # whenever conv1 covers it (k >= 3, odd)
     if conv1_kernel_size >= 3:
@@ -255,10 +276,9 @@ def build_pyramid_from_level(level0: SparseLevel, capacities: Sequence[int],
                for ox in (-1, 0, 1) for oy in (-1, 0, 1) for oz in (-1, 0, 1)]
         same0 = conv1_map[:, :, sel]
     else:
-        same0 = kernel_map_same_fast(levels[0], 3)
-    same_maps = (same0,) + tuple(
-        kernel_map_same_fast(lv, 3) for lv in levels[1:]
-    )
+        same0 = maps["same0"]
+    same_maps = (same0,) + tuple(maps[f"same{l}"]
+                                 for l in range(1, len(levels)))
     return SparsePyramid(
         levels=tuple(levels),
         same_maps=same_maps,

@@ -1,19 +1,24 @@
 """Batched nearest-neighbour min over 3-D clouds (kernel K2) and the
 Chamfer loss built on it.
 
-``nn_min(queries [B, Nq, 3], supports [B, Ns, 3], s_mask [B, Ns])
--> (d2 float32 [B, Nq], idx int32 [B, Nq])`` is the port of
-``apr_tpu/ops/pallas/distance.py::nn_min_pallas``, batched over clouds so
-that one launch serves every cloud of a Chamfer direction: per query, the
-squared distance to the nearest masked-valid support of its cloud and that
-support's index; ties go to the lowest index, and a query with no valid
-support gets (inf, Ns).
+``nn_min(queries [B, Nq, 3], supports [B, Ns, 3], s_mask [B, Ns],
+q_mask [B, Nq] or None) -> (d2 float32 [B, Nq], idx int32 [B, Nq])`` is
+the port of ``apr_tpu/ops/pallas/distance.py::nn_min_pallas``, batched
+over clouds so that one launch serves every cloud of a Chamfer direction:
+per query, the squared distance to the nearest masked-valid support of its
+cloud and that support's index; ties go to the lowest index, and a query
+with no valid support gets (inf, Ns).  A query that ``q_mask`` leaves out
+gets (inf, Ns) too, uncomputed.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-``apr_torch/csrc/nn_min.cu`` (or raises); on a CPU tensor it runs
-:func:`nn_min_plain`, the same function in plain torch ops, whose sums the
-kernel repeats in the same order and rounding (exact agreement, d2 and idx).
-``nn_min.launches`` counts kernel launches.
+The wrapper partitions each cloud's valid supports (and valid queries) to
+the front, keeping their order (:func:`partition`, device ops only), so the
+kernel computes only valid pairs from per-cloud counts it reads on the
+device; it maps the index back through the partition.  On a CUDA tensor it
+launches the hand-written kernel ``apr_torch/csrc/nn_min.cu`` (or raises);
+on a CPU tensor it runs :func:`nn_min_plain` over the compacted clouds, the
+same function in plain torch ops, whose sums the kernel repeats in the same
+order and rounding (exact agreement, d2 and idx).  ``nn_min.launches``
+counts kernel launches.
 
 ``directed_mean_sq_nn_pallas`` and ``chamfer_distance_pallas`` port the
 custom-VJP wrappers of the same file (:120-174), per cloud over the batch.
@@ -22,7 +27,7 @@ custom-VJP wrappers of the same file (:120-174), per cloud over the batch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,64 +74,155 @@ def nn_min_plain(queries: torch.Tensor, supports: torch.Tensor,
     return best_d2, best_i
 
 
-def _check(queries, supports, s_mask) -> None:
+class Partition(NamedTuple):
+    """A stable partition of each cloud's valid points to the front."""
+
+    order: torch.Tensor   # [B, N] int64: original index at each position
+    pos: torch.Tensor     # [B, N] int64: position of each original index
+    count: torch.Tensor   # [B] int32: valid points
+
+
+def partition(mask: torch.Tensor) -> Partition:
+    """:class:`Partition` of ``mask`` [B, N] by device ops alone (cumsum
+    positions and one scatter; no host sync): valid points keep their order
+    at positions [0, count), the rest follow in theirs."""
+    b, n = mask.shape
+    if n == 0:
+        none = torch.zeros((b, 0), dtype=torch.int64, device=mask.device)
+        return Partition(none, none, torch.zeros(
+            b, dtype=torch.int32, device=mask.device))
+    # valid points before each one: a scan within rows of 256, then over
+    # the rows' totals (a scan of a few long rows runs one block per row)
+    rows = torch.nn.functional.pad(mask.long(), (0, -n % 256)).view(b, -1, 256)
+    inner = torch.cumsum(rows, dim=2)
+    totals = torch.cumsum(inner[:, :, -1], dim=1)
+    count = totals[:, -1]
+    before = (inner - rows + (totals - inner[:, :, -1])[:, :, None]).view(
+        b, -1)[:, :n]
+    ar = torch.arange(n, device=mask.device)
+    pos = torch.where(mask, before, count[:, None] - before + ar)
+    order = torch.empty_like(pos).scatter_(1, pos, ar.expand(b, -1))
+    return Partition(order, pos, count.to(torch.int32))
+
+
+def compact(points: torch.Tensor, part: Partition) -> torch.Tensor:
+    """points [B, N, 3] in partition order as [B, N, 4] (x, y, z, 0): the
+    layout the kernel stages with 16-byte copies."""
+    padded = torch.nn.functional.pad(points, (0, 1))
+    return torch.gather(padded, 1, part.order[..., None].expand(-1, -1, 4))
+
+
+def _check(queries, supports, s_mask, q_mask) -> None:
     if queries.dtype != torch.float32 or supports.dtype != torch.float32:
         raise TypeError(f"nn_min takes float32 points, got {queries.dtype} "
                         f"and {supports.dtype}")
-    if s_mask.dtype != torch.bool:
-        raise TypeError(f"nn_min takes a bool support mask, got "
-                        f"{s_mask.dtype}")
+    if s_mask.dtype != torch.bool or (q_mask is not None
+                                      and q_mask.dtype != torch.bool):
+        raise TypeError("nn_min takes bool masks")
     b, nq = queries.shape[:2]
     if (queries.dim() != 3 or supports.dim() != 3 or queries.shape[2] != 3
             or supports.shape[2] != 3 or supports.shape[0] != b
-            or tuple(s_mask.shape) != tuple(supports.shape[:2])):
-        raise ValueError(f"want queries [B, Nq, 3], supports [B, Ns, 3] and "
-                         f"s_mask [B, Ns], got {tuple(queries.shape)}, "
-                         f"{tuple(supports.shape)} and {tuple(s_mask.shape)}")
-    if not (queries.device == supports.device == s_mask.device):
-        raise ValueError(f"queries on {queries.device}, supports on "
-                         f"{supports.device}, s_mask on {s_mask.device}")
+            or tuple(s_mask.shape) != tuple(supports.shape[:2])
+            or (q_mask is not None
+                and tuple(q_mask.shape) != tuple(queries.shape[:2]))):
+        raise ValueError(f"want queries [B, Nq, 3], supports [B, Ns, 3], "
+                         f"s_mask [B, Ns] and q_mask [B, Nq], got "
+                         f"{tuple(queries.shape)}, {tuple(supports.shape)}, "
+                         f"{tuple(s_mask.shape)} and "
+                         f"{None if q_mask is None else tuple(q_mask.shape)}")
+    masks = (s_mask,) if q_mask is None else (s_mask, q_mask)
+    if any(x.device != queries.device for x in (supports,) + masks):
+        raise ValueError("nn_min takes its tensors on one device")
 
 
-def _launch(queries, supports, s_mask):
-    if not (queries.is_contiguous() and supports.is_contiguous()
-            and s_mask.is_contiguous()):
-        raise ValueError("nn_min kernel takes contiguous tensors")
+# the kernel's per-query result before any candidate: (inf bits << 32 |
+# 0xffffffff), the packed (d2, index) that every real candidate undercuts
+_NONE = (0x7F800000 << 32) | 0xFFFFFFFF
+
+
+def _launch(q4, s4, nq_count, ns_count):
+    """Kernel K2 on compacted clouds: (d2 [B, Nq], index [B, Nq] int64,
+    at least ns_count where no valid support exists)."""
     from apr_torch.kernels.build import load
 
     fn = load("nn_min").apr_nn_min
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    b, nq = queries.shape[:2]
-    ns = supports.shape[1]
-    d2 = torch.empty((b, nq), dtype=torch.float32, device=queries.device)
-    idx = torch.empty((b, nq), dtype=torch.int32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
-        err = fn(queries.data_ptr(), supports.data_ptr(), s_mask.data_ptr(),
-                 d2.data_ptr(), idx.data_ptr(), b, nq, ns, stream)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    b, nq = q4.shape[:2]
+    ns = s4.shape[1]
+    packed = torch.full((b, nq), _NONE, dtype=torch.int64, device=q4.device)
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream(q4.device).cuda_stream
+        err = fn(q4.data_ptr(), s4.data_ptr(), nq_count.data_ptr(),
+                 ns_count.data_ptr(), packed.data_ptr(), b, nq, ns, stream)
     if err != 0:
         raise RuntimeError(f"nn_min kernel launch failed: CUDA error {err}")
-    if b > 0 and nq > 0:
-        nn_min.launches += 1
-    return d2, idx
+    nn_min.launches += 1
+    d2 = (packed >> 32).to(torch.int32).view(torch.float32)
+    return d2, packed & 0xFFFFFFFF
+
+
+def _compact_plain(q4, s4, nq_count, ns_count):
+    """The kernel's function in plain torch ops: :func:`nn_min_plain` over
+    the compacted supports with a prefix mask (and over every query, the
+    ``nq_count`` valid ones among them)."""
+    ns = s4.shape[1]
+    s_valid = (torch.arange(ns, device=s4.device)[None, :]
+               < ns_count[:, None])
+    d2, idx = nn_min_plain(q4[..., :3], s4[..., :3], s_valid)
+    return d2, idx.long()
+
+
+def nn_min_partitioned(queries: torch.Tensor, supports: torch.Tensor,
+                       s_part: Partition, q_part: Optional[Partition] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nn_min` from precomputed partitions (a Chamfer computes each
+    mask's partition once for both directions)."""
+    b, nq = queries.shape[:2]
+    ns = supports.shape[1]
+    dev = queries.device
+    if b == 0 or nq == 0 or ns == 0:
+        return (torch.full((b, nq), float("inf"), device=dev),
+                torch.full((b, nq), ns, dtype=torch.int32, device=dev))
+    s4 = compact(supports, s_part)
+    if q_part is None:
+        q4 = torch.nn.functional.pad(queries, (0, 1))
+        nq_count = torch.full((b,), nq, dtype=torch.int32, device=dev)
+    else:
+        q4, nq_count = compact(queries, q_part), q_part.count
+    if dev.type == "cpu":
+        d2, idx = _compact_plain(q4, s4, nq_count, s_part.count)
+    elif dev.type == "cuda":
+        d2, idx = _launch(q4, s4, nq_count, s_part.count)
+    else:
+        raise ValueError(f"nn_min has no path for {dev}")
+    found = idx < s_part.count[:, None]
+    idx = torch.where(found, torch.gather(s_part.order, 1,
+                                          torch.where(found, idx, 0)), ns)
+    if q_part is not None:
+        valid = q_part.pos < q_part.count[:, None]
+        d2 = torch.where(valid, torch.gather(d2, 1, q_part.pos),
+                         float("inf"))
+        idx = torch.where(valid, torch.gather(idx, 1, q_part.pos), ns)
+    return d2, idx.to(torch.int32)
 
 
 def nn_min(queries: torch.Tensor, supports: torch.Tensor,
-           s_mask: Optional[torch.Tensor] = None
+           s_mask: Optional[torch.Tensor] = None,
+           q_mask: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(min sqdist float32 [B, Nq], argmin idx int32 [B, Nq]); see the
-    module docstring for the contract."""
+    module docstring for the contract.  With ``q_mask`` only the valid
+    queries are computed, and the others get (inf, Ns)."""
     if s_mask is None:
         s_mask = torch.ones(supports.shape[:2], dtype=torch.bool,
                             device=supports.device)
-    _check(queries, supports, s_mask)
-    if queries.device.type == "cpu":
-        return nn_min_plain(queries, supports, s_mask)
-    if queries.device.type == "cuda":
-        return _launch(queries, supports, s_mask)
-    raise ValueError(f"nn_min has no path for {queries.device}")
+    _check(queries, supports, s_mask, q_mask)
+    return nn_min_partitioned(
+        queries.contiguous(), supports.contiguous(), partition(s_mask),
+        None if q_mask is None else partition(q_mask))
 
 
 nn_min.launches = 0
@@ -158,13 +254,14 @@ def masked_mean(d2: torch.Tensor, q_mask: torch.Tensor):
 
 class DirectedMeanSqNNPallas(torch.autograd.Function):
     """Per cloud, the masked mean over queries of the squared distance to
-    the nearest valid support, through kernel K2; the backward masks with
-    ``(idx < Ns) & q_mask`` as the Pallas VJP does (distance.py:151)."""
+    the nearest valid support, through kernel K2 on the valid queries only;
+    the backward masks with ``(idx < Ns) & q_mask`` as the Pallas VJP does
+    (distance.py:151).  ``q_part`` / ``s_part``: the masks' partitions."""
 
     @staticmethod
-    def forward(ctx, queries, supports, q_mask, s_mask):
-        d2, idx = nn_min(queries.contiguous(), supports.contiguous(),
-                         s_mask.contiguous())
+    def forward(ctx, queries, supports, q_mask, s_mask, q_part, s_part):
+        d2, idx = nn_min_partitioned(queries.contiguous(),
+                                     supports.contiguous(), s_part, q_part)
         val, nq = masked_mean(d2, q_mask)
         ctx.save_for_backward(queries, supports, q_mask, idx, nq)
         return val
@@ -174,20 +271,23 @@ class DirectedMeanSqNNPallas(torch.autograd.Function):
         queries, supports, q_mask, idx, nq = ctx.saved_tensors
         resolved = (idx < supports.shape[1]) & q_mask
         dq, ds = directed_backward(queries, supports, resolved, idx, nq, g)
-        return dq, ds, None, None
+        return dq, ds, None, None, None, None
 
 
 def directed_mean_sq_nn_pallas(queries, supports, q_mask, s_mask):
     """[B] masked mean of min squared NN distances (kernel K2 forward)."""
-    return DirectedMeanSqNNPallas.apply(queries, supports, q_mask, s_mask)
+    return DirectedMeanSqNNPallas.apply(queries, supports, q_mask, s_mask,
+                                        partition(q_mask), partition(s_mask))
 
 
 def chamfer_distance_pallas(a, b, a_mask=None, b_mask=None):
     """[B] bidirectional Chamfer (reference normalization) per cloud of
-    a [B, Na, 3] and b [B, Nb, 3], through kernel K2."""
+    a [B, Na, 3] and b [B, Nb, 3], through kernel K2; each mask is
+    partitioned once for both directions."""
     if a_mask is None:
         a_mask = torch.ones(a.shape[:2], dtype=torch.bool, device=a.device)
     if b_mask is None:
         b_mask = torch.ones(b.shape[:2], dtype=torch.bool, device=b.device)
-    return (directed_mean_sq_nn_pallas(a, b, a_mask, b_mask)
-            + directed_mean_sq_nn_pallas(b, a, b_mask, a_mask))
+    pa, pb = partition(a_mask), partition(b_mask)
+    return (DirectedMeanSqNNPallas.apply(a, b, a_mask, b_mask, pa, pb)
+            + DirectedMeanSqNNPallas.apply(b, a, b_mask, a_mask, pb, pa))

@@ -9,15 +9,19 @@ ascend (holes anywhere are fine).  The result equals
 ``searchsorted(support[b], queries[b], side='left')``; an INVALID query
 gets the count of valid supports.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-``apr_torch/csrc/searchsorted.cu`` (or raises); on a CPU tensor it runs
+``searchsorted_left_many`` runs several such searches over the same
+clouds, the seven kernel maps of a pyramid build, in one launch.
+
+On a CUDA tensor the wrappers launch the hand-written kernel
+``apr_torch/csrc/searchsorted.cu`` (or raise); on a CPU tensor they run
 :func:`searchsorted_left_plain`, the same function in plain torch ops.
-``searchsorted_left.launches`` counts kernel launches.
+``searchsorted_left.launches`` counts kernel launches, grouped or single.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -54,41 +58,83 @@ def _check(support: torch.Tensor, queries: torch.Tensor) -> None:
                          f"{queries.device}")
 
 
-def _launch(support: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    if not (support.is_contiguous() and queries.is_contiguous()):
-        raise ValueError("searchsorted_left kernel takes contiguous tensors")
-    from apr_torch.kernels.build import load
+MAX_SEARCHES = 8   # descriptors one launch carries (csrc/searchsorted.cu)
+_Ptrs = ctypes.c_void_p * MAX_SEARCHES
+_Ints = ctypes.c_int * MAX_SEARCHES
+_Counts = ctypes.c_longlong * MAX_SEARCHES
+_entry = []        # the loaded C entry point, once per process
 
-    fn = load("searchsorted").apr_searchsorted_left
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    b, s = support.shape
-    n = queries.shape[1] * queries.shape[2]
-    out = torch.empty_like(queries)
-    with torch.cuda.device(support.device):
-        stream = torch.cuda.current_stream(support.device).cuda_stream
-        err = fn(support.data_ptr(), queries.data_ptr(), out.data_ptr(),
-                 b, s, n, stream)
+
+def _kernel():
+    if not _entry:
+        from apr_torch.kernels.build import load
+
+        fn = load("searchsorted").apr_searchsorted_left_many
+        fn.argtypes = [ctypes.c_int, _Ptrs, _Ptrs, _Ptrs, _Ints, _Counts,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entry.append(fn)
+    return _entry[0]
+
+
+def _launch(searches):
+    """One launch of the kernel over up to MAX_SEARCHES (support, queries)
+    pairs that share B and a device; the results are views of one buffer."""
+    fn = _kernel()
+    b, dev = searches[0][0].shape[0], searches[0][0].device
+    numels = [q.numel() for _, q in searches]
+    flat = torch.empty(sum(numels), dtype=torch.int32, device=dev)
+    outs = [o.view(q.shape)
+            for o, (_, q) in zip(flat.split(numels), searches)]
+    counts = [n // b if b else 0 for n in numels]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(len(searches), _Ptrs(*(s.data_ptr() for s, _ in searches)),
+                 _Ptrs(*(q.data_ptr() for _, q in searches)),
+                 _Ptrs(*(o.data_ptr() for o in outs)),
+                 _Ints(*(s.shape[1] for s, _ in searches)), _Counts(*counts),
+                 b, stream)
     if err != 0:
         raise RuntimeError(f"searchsorted_left kernel launch failed: CUDA "
                            f"error {err}")
-    if b > 0 and n > 0:
+    if b > 0 and any(counts):
         searchsorted_left.launches += 1
-    return out
+    return outs
+
+
+def searchsorted_left_many(searches: Sequence[Tuple[torch.Tensor,
+                                                    torch.Tensor]]
+                           ) -> List[torch.Tensor]:
+    """Several searches (support [B, S_i], queries [B, G_i, C_i]) over the
+    same B clouds in one launch (one per MAX_SEARCHES); their results in
+    order.  On the CPU, the list of :func:`searchsorted_left_plain` calls."""
+    searches = list(searches)
+    for support, queries in searches:
+        _check(support, queries)
+    if not searches:
+        return []
+    dev, b = searches[0][0].device, searches[0][0].shape[0]
+    if any(s.device != dev or s.shape[0] != b for s, _ in searches):
+        raise ValueError("searchsorted_left_many takes searches over the "
+                         "same clouds on one device")
+    if dev.type == "cpu":
+        return [searchsorted_left_plain(s, q) for s, q in searches]
+    if dev.type != "cuda":
+        raise ValueError(f"searchsorted_left has no path for {dev}")
+    if not all(s.is_contiguous() and q.is_contiguous() for s, q in searches):
+        raise ValueError("searchsorted_left kernel takes contiguous tensors")
+    outs = []
+    for i in range(0, len(searches), MAX_SEARCHES):
+        outs += _launch(searches[i:i + MAX_SEARCHES])
+    return outs
 
 
 def searchsorted_left(support: torch.Tensor,
                       queries: torch.Tensor) -> torch.Tensor:
     """Left insertion points of ``queries`` [B, G, C] in ``support`` [B, S]
-    (int32); see the module docstring for the contract."""
-    _check(support, queries)
-    if support.device.type == "cpu":
-        return searchsorted_left_plain(support, queries)
-    if support.device.type == "cuda":
-        return _launch(support, queries)
-    raise ValueError(f"searchsorted_left has no path for {support.device}")
+    (int32); see the module docstring for the contract.  The grouped entry
+    with one search."""
+    return searchsorted_left_many([(support, queries)])[0]
 
 
 searchsorted_left.launches = 0

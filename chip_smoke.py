@@ -2,33 +2,40 @@
 """Drive the apr_torch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
+    python3 chip_smoke.py --k1-baseline DIR   # phases 3b, 8 time DIR's K1 too
 
 Phases (each prints its lines and raises on failure, so any failure exits
 non-zero; with no card, or outside a checkout, it exits non-zero at once):
 
 1. device: the card's name and power limit, the TF32 settings;
 2. build: every kernel under apr_torch/csrc, from the checkout's sources;
-3. kernel K1 (searchsorted_left) against its plain version, exact: (a) the
-   contract cases, (b) the seven searches of a full-capacity pyramid
-   build batched over 8 clouds, with kernel / plain / torch.searchsorted
-   times and the memory bound per shape;
+3. kernel K1 (searchsorted_left, grouped: one launch per pyramid build)
+   against its plain version, exact: (a) the contract cases, one by one and
+   grouped, (b) the seven searches of a full-capacity pyramid build over 8
+   clouds in one grouped launch, with grouped kernel / plain / 7x
+   torch.searchsorted times and the memory bound (and, with --k1-baseline,
+   the K1 of another checkout, exact and timed the same way);
 4. pyramid: the fast kernel maps (through K1) and the transposed up maps
    equal the slow oracles;
 5. encoder: ResUNetFatBN in float32 on the card against the CPU, and the
    bf16 deviation;
 6. RANSAC on a ground-truth correspondence set with 50% outliers;
 7. the eval slice: FeatureTester.test on 8 synthetic pairs at full width,
-   with K1's launch count read around it, and a per-stage time split;
-8. K1 at the eval path's shapes;
+   with K1's launch count read around it (exactly one per batch build), and
+   a per-stage time split;
+8. K1 at the eval path's shapes (one build, B=2): grouped kernel / plain /
+   7x torch.searchsorted (/ baseline) times and the bound;
 9. kernel K2 (nn_min) against its plain version, exact in d2 and idx, on
-   the contract cases;
+   the contract cases, with and without a query mask;
 10. the training slice: FCGFTrainer.train_step at full width (ResUNetFatBN
    128, bf16, B=4, APC 65536, chamfer_mode="pallas") for TRAIN_STEPS steps
-   with the launch counts of K1 and K2 read around them, a per-stage time
-   split, one step in chamfer_mode="window" and one valid_step;
-11. K2 at the train step's shapes: its four launches of one step against the
-   plain version (exact) with kernel / plain / torch.cdist times and the
-   bound;
+   with the launch counts of K1 and K2 read around them (one K1 launch per
+   batch build, four K2 launches per step), a per-stage time split, one
+   step in chamfer_mode="window" and one valid_step;
+11. K2 at the train step's shapes: its four launches of one step, with the
+   query masks the loss hands it, against the plain version (exact) with
+   wrapper / partition / kernel / plain / torch.cdist times, the bound and
+   the share of it;
 12. one float32 train step at a small size, card against CPU, from the same
    weights and the same contrastive samples, and the same step with a
    planted backward fault, which the check must catch.
@@ -55,6 +62,7 @@ N_PAIRS = 8
 SUBSAMPLE = 5000
 HYPOTHESES = 32768
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+SM_HZ = 1.98e9                   # H100 SXM boost clock: cycles of a sleep
 # H100 SXM float32 outside the tensor cores: 67 TFLOP/s counts a fused
 # multiply-add as two operations, so 3.35e13 instructions a second; K2's
 # subtractions, products and sums cannot fuse and count one each
@@ -82,14 +90,40 @@ def phase(name):
     return time.perf_counter()
 
 
+def host_ms(fn, reps=20, rounds=5):
+    """Host time to enqueue one call of ``fn``: the least over ``rounds``
+    of the mean over ``reps`` calls (no synchronisation inside a round).
+    The least, because the host's cores are shared and other work only
+    adds to a round."""
+    fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / reps)
+    torch.cuda.synchronize()
+    return best
+
+
 def cuda_ms(fn, reps, warmup=True):
     """Mean device time of ``fn`` over ``reps`` launches, after a warm-up
-    (skipped for a call that takes seconds and needs none)."""
+    (skipped for a call that takes seconds and needs none).  A sleep kernel
+    holds the card while the host enqueues the launches, so calls whose
+    device time is shorter than their host time are timed back to back on
+    the device and not at the host's pace."""
     if warmup:
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if warmup:
+        t0 = time.perf_counter()
+        fn()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(1.5 * reps * enqueue_s, 2.0) * SM_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -133,63 +167,109 @@ def profiled(fn, x, inference=True):
 
 def searches_of(lv, conv1_kernel_size):
     """The seven (name, support [B, S], queries [B, G, C]) searches that
-    build_pyramid_from_level runs over the levels ``lv``, as _zrun_maps
-    forms them."""
-    from apr_torch.ops.hashing import INVALID_KEY, pack_coords
-    from apr_torch.models.sparse import zrun_queries
+    build_pyramid_from_level makes over the levels ``lv``."""
+    from apr_torch.models.sparse import pyramid_searches
 
-    out = [("conv1 same L0", lv[0].keys,
-            zrun_queries(lv[0].keys, lv[0].coords, lv[0].mask,
-                         conv1_kernel_size)[0])]
-    for l in range(len(lv) - 1):
-        base = lv[l + 1].coords * 2
-        keys = torch.where(lv[l + 1].mask, pack_coords(base), INVALID_KEY)
-        out.append((f"down L{l}->L{l + 1}", lv[l].keys,
-                    zrun_queries(keys, base, lv[l + 1].mask, 3)[0]))
-    for l in range(1, len(lv)):
-        out.append((f"same L{l}", lv[l].keys,
-                    zrun_queries(lv[l].keys, lv[l].coords, lv[l].mask,
-                                 3)[0]))
-    return [(n, s.contiguous(), q.contiguous()) for n, s, q in out]
+    return [(name, z.support, z.t0)
+            for name, z in pyramid_searches(lv, conv1_kernel_size)]
 
 
-def time_searches(searches, reps=20):
-    """Kernel / plain / library times and the bound of each search; the
-    kernel is held to the plain version (exact) on the way."""
-    from apr_torch.ops.searchsorted import searchsorted_left, \
+def baseline_k1(root):
+    """K1 as another checkout of this repo has it: that checkout's
+    ``searchsorted_left`` wrapper over a library built from its
+    ``csrc/searchsorted.cu``.  Returns a function that runs the wrapper
+    once per search of a list, so that an earlier K1 is timed against this
+    one on the same card, in the same run and with the same timer."""
+    import ctypes
+    import importlib.util
+    from pathlib import Path
+
+    from apr_torch.kernels import build
+
+    root = Path(root).resolve()
+    lib = ctypes.CDLL(str(build._build_one(
+        build._nvcc(), root / "apr_torch" / "csrc" / "searchsorted.cu")))
+    spec = importlib.util.spec_from_file_location(
+        "baseline_searchsorted", root / "apr_torch" / "ops" / "searchsorted.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def run(pairs):
+        # the wrapper loads its library by name at each call: hand it the
+        # baseline's for the duration of the call
+        real, build.load = build.load, lambda name: lib
+        try:
+            return [mod.searchsorted_left(sup, q) for sup, q in pairs]
+        finally:
+            build.load = real
+    return run
+
+
+def time_searches(searches, reps=20, baseline=None):
+    """The grouped kernel over all ``searches`` (one launch), held to the
+    plain version (exact) search by search; then grouped kernel / plain /
+    per-search torch.searchsorted times, each summed over the searches,
+    and the memory bound.  With ``baseline`` (from :func:`baseline_k1`),
+    that K1 too, held to the plain version and timed beside this one.
+    Returns the totals and the largest error."""
+    from apr_torch.ops.searchsorted import searchsorted_left_many, \
         searchsorted_left_plain
 
-    rows = []
-    for name, sup, q in searches:
+    pairs = [(sup, q) for _, sup, q in searches]
+    got = searchsorted_left_many(pairs)
+    old = baseline(pairs) if baseline else [None] * len(pairs)
+    err, bound_ms = 0, 0.0
+    for (name, sup, q), out, out_old in zip(searches, got, old):
         b, s = sup.shape
         g, c = q.shape[1:]
-        got = searchsorted_left(sup, q)
         want = searchsorted_left_plain(sup, q)
-        err = int((got - want).abs().max())
-        if err != 0:
+        e = int((out - want).abs().max())
+        if e != 0:
             raise AssertionError(f"K1 disagrees with its plain version on "
-                                 f"{name}: max abs err {err}")
-        flat = q.reshape(b, g * c)
-        bound_ms = (2 * g * c + s) * 4 * b / HBM_BYTES_PER_S * 1e3
-        rows.append(dict(
-            name=name, B=b, G=g, C=c, S=s, max_abs_err=err,
-            ms=cuda_ms(lambda: searchsorted_left(sup, q), reps),
-            plain_ms=cuda_ms(lambda: searchsorted_left_plain(sup, q), 3),
-            library_ms=cuda_ms(lambda: torch.searchsorted(
-                sup, flat, out_int32=True), reps),
-            bound_ms=bound_ms))
-        r = rows[-1]
-        print(f"  {name:14s} B={b} G={g:3d} C={c:5d} S={s:5d}  "
-              f"kernel {r['ms'] * 1e3:8.1f} us  plain {r['plain_ms'] * 1e3:9.1f}"
-              f" us  torch.searchsorted {r['library_ms'] * 1e3:8.1f} us  "
-              f"bound {bound_ms * 1e3:6.2f} us  exact", flush=True)
-    return rows
+                                 f"{name}: max abs err {e}")
+        if out_old is not None and not torch.equal(out_old, want):
+            raise AssertionError(f"the baseline K1 disagrees with the plain "
+                                 f"version on {name}")
+        err = max(err, e)
+        bound = (2 * g * c + s) * 4 * b / HBM_BYTES_PER_S * 1e3
+        bound_ms += bound
+        print(f"  {name:6s} B={b} G={g:3d} C={c:5d} S={s:5d}  bound "
+              f"{bound * 1e3:6.2f} us  exact", flush=True)
+    flat = [(sup, q.reshape(q.shape[0], -1)) for sup, q in pairs]
+    r = dict(
+        max_abs_err=err, bound_ms=bound_ms,
+        ms=cuda_ms(lambda: searchsorted_left_many(pairs), reps),
+        plain_ms=cuda_ms(lambda: [searchsorted_left_plain(sup, q)
+                                  for sup, q in pairs], 3),
+        library_ms=cuda_ms(lambda: [torch.searchsorted(sup, q, out_int32=True)
+                                    for sup, q in flat], reps),
+        host_ms=host_ms(lambda: searchsorted_left_many(pairs)),
+        library_host_ms=host_ms(lambda: [
+            torch.searchsorted(sup, q, out_int32=True) for sup, q in flat]))
+    print(f"  all {len(pairs)} searches, device time: grouped kernel (1 "
+          f"launch) {r['ms'] * 1e3:8.1f} us  plain "
+          f"{r['plain_ms'] * 1e3:9.1f} us  {len(pairs)}x torch.searchsorted "
+          f"{r['library_ms'] * 1e3:8.1f} us  bound {bound_ms * 1e3:6.2f} us"
+          f"; host time to enqueue: grouped kernel "
+          f"{r['host_ms'] * 1e3:6.1f} us, {len(pairs)}x torch.searchsorted "
+          f"{r['library_host_ms'] * 1e3:6.1f} us", flush=True)
+    if baseline:
+        r.update(baseline_ms=cuda_ms(lambda: baseline(pairs), reps),
+                 baseline_host_ms=host_ms(lambda: baseline(pairs)))
+        print(f"  baseline K1 ({len(pairs)} calls of its searchsorted_left): "
+              f"device time {r['baseline_ms'] * 1e3:8.1f} us, host time to "
+              f"enqueue {r['baseline_host_ms'] * 1e3:6.1f} us; exact",
+              flush=True)
+    return r
 
 
 def contract_cases():
     """The four cases of tests/test_pallas_searchsorted.py (holes and
     padding, multi-slab spans, extremes and duplicates, empty support) and
-    a support too long to stage in shared memory, as [S] and [G, C]."""
+    the window edges of the two-level search (duplicate runs across every
+    32-key edge, S < 32, S % 32 != 0, S = 0) and supports whose coarse
+    table is large (S = 60000) or needs a stride above 32 (S = 300000),
+    as [S] and [G, C]."""
     from apr_torch.ops.hashing import INVALID_KEY
 
     rng = np.random.default_rng(0)
@@ -214,19 +294,38 @@ def contract_cases():
         ("all above", dup, np.full((1, 128), 250, np.int32)),
         ("empty support", np.full(128, INVALID_KEY, np.int32),
          np.arange(128, dtype=np.int32)[None]),
-        ("S > 58112, no staging",
-         np.arange(0, 200000, 3, dtype=np.int32)[:60000],
+        ("S = 60000", np.arange(0, 200000, 3, dtype=np.int32)[:60000],
          np.sort(rng.integers(-5, 190000, (3, 1000)).astype(np.int32),
+                 axis=1)),
+    ]
+    edge = np.repeat(np.arange(0, 40, dtype=np.int32) * 7, 24)[:900]
+    q_edge = np.sort(rng.integers(-3, 290, (3, 300)).astype(np.int32), axis=1)
+    q_edge[:, -20:] = INVALID_KEY
+    cases += [
+        ("duplicates across 32-key edges",
+         np.concatenate([edge, np.full(124, INVALID_KEY, np.int32)]), q_edge),
+        ("S < 32", np.array([3, 3, 9, 12, 40, 41, 41, 77, 100, 230], np.int32),
+         np.arange(-2, 240, 2, dtype=np.int32)[None]),
+        ("S % 32 != 0",
+         np.sort(rng.choice(5000, 333, replace=False)).astype(np.int32),
+         np.sort(rng.integers(-10, 5100, (2, 400)).astype(np.int32), axis=1)),
+        ("S = 0", np.zeros(0, np.int32),
+         np.array([[0, 5, INVALID_KEY]], np.int32)),
+        ("S = 300000, coarse stride 64",
+         np.sort(rng.choice(1 << 29, 300000, replace=False)).astype(np.int32),
+         np.sort(rng.integers(-5, 1 << 29, (2, 3000)).astype(np.int32),
                  axis=1)),
     ]
     return cases
 
 
 def k2_contract_cases():
-    """(name, queries [B, Nq, 3], supports [B, Ns, 3], s_mask [B, Ns]) as
-    numpy: the cases of tests/test_pallas_distance.py and
-    tests/test_torch_distance.py, with sizes that are not multiples of the
-    kernel's 512-query block or its 2048-support tile."""
+    """(name, queries [B, Nq, 3], supports [B, Ns, 3], s_mask [B, Ns],
+    q_mask [B, Nq] or None) as numpy: the cases of
+    tests/test_pallas_distance.py and tests/test_torch_distance.py, and
+    the partitioned paths' (scattered query masks, a cloud with no valid
+    query or support, valid counts that are not multiples of the kernel's
+    2048-query tile or 256-support stage)."""
     rng = np.random.default_rng(2)
 
     def grid(*shape):      # multiples of 1/8: exact products, many ties
@@ -235,33 +334,58 @@ def k2_contract_cases():
     def lidar(*shape):
         return rng.uniform(-80, 80, shape).astype(np.float32)
 
+    def keep(shape, share):
+        return rng.random(shape) < share
+
     some = np.zeros((1, 5000), bool)
     some[0, rng.choice(5000, 700, replace=False)] = True
+    no_query = keep((3, 3000), 0.7)
+    no_query[1] = False
+    no_support = keep((3, 2600), 0.6)
+    no_support[0] = False
+    ragged_q = np.zeros((2, 4500), bool)
+    ragged_q[0, rng.choice(4500, 2049, replace=False)] = True
+    ragged_q[1, rng.choice(4500, 4097, replace=False)] = True
+    ragged_s = np.zeros((2, 3000), bool)
+    ragged_s[0, rng.choice(3000, 257, replace=False)] = True
+    ragged_s[1, rng.choice(3000, 2561, replace=False)] = True
     return [
         ("grid values, ties", grid(1, 1000, 3), grid(1, 4500, 3),
-         np.ones((1, 4500), bool)),
+         np.ones((1, 4500), bool), None),
         ("LiDAR-scale floats", lidar(1, 3000, 3), lidar(1, 5000, 3),
-         np.ones((1, 5000), bool)),
-        ("masked supports", lidar(1, 2000, 3), lidar(1, 5000, 3), some),
+         np.ones((1, 5000), bool), None),
+        ("masked supports", lidar(1, 2000, 3), lidar(1, 5000, 3), some, None),
         ("all supports masked", lidar(1, 700, 3), lidar(1, 3000, 3),
-         np.zeros((1, 3000), bool)),
+         np.zeros((1, 3000), bool), None),
         ("ragged 513 x 2049", grid(1, 513, 3), grid(1, 2049, 3),
-         rng.random((1, 2049)) > 0.3),
+         rng.random((1, 2049)) > 0.3, None),
         ("B=3, own masks", grid(3, 1500, 3), lidar(3, 2500, 3),
-         rng.random((3, 2500)) > np.array([[0.0], [0.6], [1.0]])),
+         rng.random((3, 2500)) > np.array([[0.0], [0.6], [1.0]]), None),
         ("one support, one query", lidar(2, 1, 3), lidar(2, 1, 3),
-         np.array([[True], [False]])),
+         np.array([[True], [False]]), None),
+        ("scattered q_mask, grid ties", grid(3, 3000, 3), grid(3, 2600, 3),
+         keep((3, 2600), 0.5), keep((3, 3000), 0.4)),
+        ("a cloud with no valid query", lidar(3, 3000, 3), lidar(3, 2600, 3),
+         keep((3, 2600), 0.5), no_query),
+        ("a cloud with no valid support", grid(3, 3000, 3), grid(3, 2600, 3),
+         no_support, keep((3, 3000), 0.8)),
+        ("valid counts 2049/4097 x 257/2561", grid(2, 4500, 3),
+         grid(2, 3000, 3), ragged_s, ragged_q),
     ]
 
 
-def k2_check(q, s, m, what):
-    """K2 against its plain version on the card: d2 bit for bit, idx
-    exactly.  Returns the kernel's (d2, idx) and the largest absolute d2
-    difference (0 where both are inf)."""
+def k2_check(q, s, m, qm, what):
+    """K2 (through its partition) against its plain version on the card: d2
+    bit for bit, idx exactly; a query that ``qm`` masks must get (inf, Ns).
+    Returns the kernel's (d2, idx) and the largest absolute d2 difference
+    (0 where both are inf)."""
     from apr_torch.ops.distance import nn_min, nn_min_plain
 
-    d2, idx = nn_min(q, s, m)
+    d2, idx = nn_min(q, s, m, qm)
     want_d2, want_idx = nn_min_plain(q, s, m)
+    if qm is not None:
+        want_d2 = torch.where(qm, want_d2, float("inf"))
+        want_idx = torch.where(qm, want_idx, s.shape[1])
     err = float((d2 - want_d2).abs().nan_to_num(0.0).max())
     same_d2 = torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))
     if not (same_d2 and torch.equal(idx, want_idx)):
@@ -311,34 +435,70 @@ def library_nn(q, s, m, chunk=4096):
         torch.where(m[:, None, :], d, float("inf")).min(dim=2)
 
 
+def partition_by_sort(mask):
+    """``apr_torch.ops.distance.partition`` as a stable argsort of the
+    mask and the inverse scatter: the plainer form that phase 11 times
+    beside it."""
+    from apr_torch.ops.distance import Partition
+
+    order = torch.argsort(~mask, dim=1, stable=True)
+    ar = torch.arange(mask.shape[1], device=mask.device)
+    pos = torch.empty_like(order).scatter_(1, order,
+                                           ar.expand(mask.shape[0], -1))
+    return Partition(order, pos, mask.sum(1, dtype=torch.int32))
+
+
 def time_k2(inputs):
-    """Per launch: exactness against the plain version, kernel / plain /
-    library times and the operations bound over the valid pairs (the
-    kernel also computes the padding rows; the bound does not count
-    them)."""
-    from apr_torch.ops.distance import nn_min, nn_min_plain
+    """Per launch: exactness against the plain version, then the times of
+    the whole nn_min call (partitions, compaction, kernel, index map), of
+    the partitions and compaction alone, of the kernel alone, of the plain
+    version and of the library, and the operations bound over the valid
+    pairs, the only pairs the kernel computes."""
+    from apr_torch.ops import distance
+    from apr_torch.ops.distance import compact, nn_min, nn_min_plain, \
+        partition
+
+    def prepare(q, s, m, qm):
+        sp, qp = partition(m), partition(qm)
+        return compact(q, qp), compact(s, sp), qp.count, sp.count
 
     rows = []
     for name, q, s, m, qm in inputs:
-        err = k2_check(q, s, m, name)[2]
+        err = k2_check(q, s, m, qm, name)[2]
         pairs = int((qm.sum(1).double() * m.sum(1).double()).sum())
-        nbytes = (q.numel() + s.numel()) * 4 + m.numel() + q.shape[0] * \
-            q.shape[1] * 8
+        nbytes = (q.numel() + s.numel()) * 4 + m.numel() + qm.numel() + \
+            q.shape[0] * q.shape[1] * 8
         bound_ms = max(pairs * K2_OPS_PER_PAIR / FP32_OPS_PER_S,
                        nbytes / HBM_BYTES_PER_S) * 1e3
+        prepared = prepare(q, s, m, qm)
+        for x in (m, qm):
+            if not all(torch.equal(a, b) for a, b in
+                       zip(partition(x), partition_by_sort(x))):
+                raise AssertionError("partition_by_sort differs from "
+                                     "partition")
         rows.append(dict(
             name=name, B=q.shape[0], Nq=q.shape[1], Ns=s.shape[1],
             valid_pairs=pairs, max_abs_err=err,
-            ms=cuda_ms(lambda: nn_min(q, s, m), 5),
+            ms=cuda_ms(lambda: nn_min(q, s, m, qm), 5),
+            partition_ms=cuda_ms(lambda: prepare(q, s, m, qm), 5),
+            kernel_ms=cuda_ms(lambda: distance._launch(*prepared), 5),
+            scan_ms=cuda_ms(lambda: (partition(m), partition(qm)), 5),
+            sort_ms=cuda_ms(lambda: (partition_by_sort(m),
+                                     partition_by_sort(qm)), 5),
             plain_ms=cuda_ms(lambda: nn_min_plain(q, s, m), 1),
             library_ms=cuda_ms(lambda: library_nn(q, s, m), 1,
                                warmup=False),
             bound_ms=bound_ms))
         r = rows[-1]
         print(f"  {name:20s} B={r['B']} Nq={r['Nq']} Ns={r['Ns']} valid "
-              f"pairs {pairs:.3e}  kernel {r['ms']:8.3f} ms  plain "
-              f"{r['plain_ms']:8.3f} ms  cdist+min {r['library_ms']:8.3f} "
-              f"ms  bound {bound_ms:7.3f} ms  exact", flush=True)
+              f"pairs {pairs:.3e}  nn_min {r['ms']:8.3f} ms (partition "
+              f"{r['partition_ms']:6.3f}, kernel {r['kernel_ms']:8.3f})  "
+              f"plain {r['plain_ms']:8.3f} ms  cdist+min "
+              f"{r['library_ms']:8.3f} ms  bound {bound_ms:7.3f} ms "
+              f"({bound_ms / r['ms']:.2f} of it)  exact", flush=True)
+        print(f"  {'':20s} its two partitions alone: partition "
+              f"{r['scan_ms'] * 1e3:7.1f} us, stable argsort "
+              f"{r['sort_ms'] * 1e3:7.1f} us", flush=True)
     return rows
 
 
@@ -543,6 +703,14 @@ def compare_train_step(dev):
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k1-baseline", metavar="DIR",
+                    help="another checkout of this repo whose K1 (wrapper "
+                         "and kernel source) phases 3b and 8 time beside "
+                         "this one's")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "apr_torch")):
         sys.exit("chip_smoke.py: apr_torch/ not found next to this script; "
                  "run it from the root of a checkout")
@@ -579,24 +747,34 @@ def main():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {log.stem}: {line.strip()}")
+    baseline = None
+    if args.k1_baseline:
+        baseline = baseline_k1(args.k1_baseline)
+        print(f"  baseline K1 built from {args.k1_baseline}")
 
-    phase("3a K1 contract cases (kernel vs plain vs numpy, exact)")
+    phase("3a K1 contract cases (kernel vs plain vs numpy, exact; one by "
+          "one, then grouped)")
     from apr_torch.ops.searchsorted import searchsorted_left, \
-        searchsorted_left_plain
+        searchsorted_left_many, searchsorted_left_plain
 
     max_err = 0
-    for name, sup, q in contract_cases():
-        s_t = torch.from_numpy(sup)[None].to(dev)
-        q_t = torch.from_numpy(q)[None].to(dev)
+    cases = [(name, sup, q, torch.from_numpy(sup)[None].to(dev),
+              torch.from_numpy(q)[None].to(dev))
+             for name, sup, q in contract_cases()]
+    grouped = searchsorted_left_many([(s_t, q_t) for *_, s_t, q_t in cases])
+    for (name, sup, q, s_t, q_t), got_many in zip(cases, grouped):
         got = searchsorted_left(s_t, q_t)
         want = searchsorted_left_plain(s_t, q_t)
-        err = int((got - want).abs().max())
+        err = max(int((got - want).abs().max()),
+                  int((got_many - want).abs().max()))
         max_err = max(max_err, err)
         ref = np.searchsorted(sup, q, side="left")
         if err or not np.array_equal(got[0].cpu().numpy(), ref):
             raise AssertionError(f"K1 wrong on {name}: err {err}")
         print(f"  {name}: S={sup.shape[0]} G={q.shape[0]} C={q.shape[1]} "
               f"exact")
+    print(f"  {len(cases)} cases grouped into "
+          f"{-(-len(cases) // 8)} launches: exact")
     torch.cuda.synchronize()
 
     t = phase("3b K1 at full capacity, 7 searches over 8 clouds")
@@ -622,10 +800,7 @@ def main():
     levels = [level0]
     for cap in caps[1:]:
         levels.append(downsample_level(levels[-1], cap))
-    rows8 = time_searches(searches_of(levels, 5))
-    print(f"  sum over the 7 searches (B=8): kernel "
-          f"{sum(r['ms'] for r in rows8) * 1e3:.1f} us, bound "
-          f"{sum(r['bound_ms'] for r in rows8) * 1e3:.1f} us")
+    k1_b8 = time_searches(searches_of(levels, 5), baseline=baseline)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
     t = phase("4 pyramid: fast maps through K1 equal the slow oracles")
@@ -721,11 +896,11 @@ def main():
     print(f"  recall {summ['recall']:.3f} (random weights: not asserted)")
     print(f"  RTE {['%.2f' % x for x in stats.rte]}")
     print(f"  RRE {['%.2f' % x for x in stats.rre]}")
-    print(f"  K1 launches during the run: {launches} "
-          f"({launches / len(pairs):.0f} per batch build)")
-    if launches < 7 * len(pairs):
-        raise AssertionError("the slice did not run every kernel map "
-                             "through K1")
+    print(f"  K1 launches during the run: {launches} for {len(pairs)} "
+          f"batch builds")
+    if launches != len(pairs):
+        raise AssertionError("the slice did not run each batch build's "
+                             "kernel maps through one K1 launch")
     if not (np.isfinite(stats.rte).all() and np.isfinite(stats.rre).all()
             and np.isfinite(stats.fitness).all()):
         raise AssertionError("non-finite RTE/RRE/fitness")
@@ -770,9 +945,9 @@ def main():
     batch = tester._pair_to_batch(pairs[0])
     both = tree_map(lambda a, b: torch.cat([a, b]), batch.pyramid0.levels,
                     batch.pyramid1.levels)
-    rows = time_searches(searches_of(both, 5))
-    max_err = max([max_err] + [r["max_abs_err"] for r in rows + rows8])
-    print("  (the record's times are sums over these 7 searches)")
+    k1_b2 = time_searches(searches_of(both, 5), baseline=baseline)
+    max_err = max(max_err, k1_b8["max_abs_err"], k1_b2["max_abs_err"])
+    print("  (the record's times are those of these 7 searches)")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
     t = phase("9 K2 contract cases (kernel vs plain, d2 bit for bit, idx "
@@ -780,9 +955,10 @@ def main():
     from apr_torch.ops.distance import nn_min
 
     k2_err = 0.0
-    for name, q, s, m in k2_contract_cases():
+    for name, q, s, m, qm in k2_contract_cases():
+        qm_t = None if qm is None else torch.from_numpy(qm).to(dev)
         d2, idx, err = k2_check(
-            *(torch.from_numpy(x).to(dev) for x in (q, s, m)), name)
+            *(torch.from_numpy(x).to(dev) for x in (q, s, m)), qm_t, name)
         k2_err = max(k2_err, err)
         none = torch.from_numpy(~m.any(1)).to(dev)
         if (bool((idx[none] != s.shape[1]).any())
@@ -790,7 +966,8 @@ def main():
             raise AssertionError(f"K2 on {name}: a query with no valid "
                                  f"support must get (inf, Ns)")
         print(f"  {name}: B={q.shape[0]} Nq={q.shape[1]} Ns={s.shape[1]} "
-              f"exact")
+              f"valid queries {'all' if qm is None else qm.sum(1).tolist()} "
+              f"supports {m.sum(1).tolist()} exact")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
     t = phase("10 training slice: FCGFTrainer.train_step, ResUNetFatBN-128 "
@@ -838,8 +1015,8 @@ def main():
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB")
     print(f"  K1 launches {k1_train} ({k1_train / TRAIN_STEPS:.0f} per "
-          f"step), K2 launches {k2_train} ({k2_train / TRAIN_STEPS:.0f} per "
-          f"step)")
+          f"step: one batch build), K2 launches {k2_train} "
+          f"({k2_train / TRAIN_STEPS:.0f} per step)")
     if not all(np.isfinite(v) for m in step_metrics for v in m.values()):
         raise AssertionError("a train step gave a non-finite loss term")
     if any(m["skipped_nonfinite"] != 0.0 for m in step_metrics):
@@ -850,9 +1027,10 @@ def main():
         raise AssertionError(f"K2 launched {k2_train} times in "
                              f"{TRAIN_STEPS} steps; the pallas Chamfer "
                              f"takes 4 per step (2 sides x 2 directions)")
-    if k1_train < 7 * TRAIN_STEPS:
-        raise AssertionError("the train step's batch builds did not run "
-                             "every kernel map through K1")
+    if k1_train != TRAIN_STEPS:
+        raise AssertionError(f"K1 launched {k1_train} times in "
+                             f"{TRAIN_STEPS} batch builds; each build's "
+                             f"kernel maps take one grouped launch")
 
     # one step by stage, synchronised at each boundary: wall time (second
     # repetition), then a profiled repetition for busy time and launches
@@ -912,10 +1090,20 @@ def main():
 
     t = phase("11 K2 at the train step's shapes (the 4 launches of a step)")
     k2_rows = time_k2(k2_inputs(trainer_t, trainer_t.build_batch(raws[0])))
-    print(f"  per step: kernel {sum(r['ms'] for r in k2_rows):.3f} ms  "
-          f"plain {sum(r['plain_ms'] for r in k2_rows):.3f} ms  cdist+min "
-          f"{sum(r['library_ms'] for r in k2_rows):.3f} ms  bound "
-          f"{sum(r['bound_ms'] for r in k2_rows):.3f} ms")
+    per_step = {k: sum(r[k] for r in k2_rows) for k in (
+        "ms", "partition_ms", "kernel_ms", "plain_ms", "library_ms",
+        "bound_ms", "scan_ms", "sort_ms")}
+    print(f"  per step: nn_min {per_step['ms']:.3f} ms (partition "
+          f"{per_step['partition_ms']:.3f} ms, kernel "
+          f"{per_step['kernel_ms']:.3f} ms)  plain "
+          f"{per_step['plain_ms']:.3f} ms  cdist+min "
+          f"{per_step['library_ms']:.3f} ms  bound "
+          f"{per_step['bound_ms']:.3f} ms: nn_min reaches "
+          f"{per_step['bound_ms'] / per_step['ms']:.2f} of the bound, the "
+          f"kernel alone {per_step['bound_ms'] / per_step['kernel_ms']:.2f}")
+    print(f"  per step, the 8 partitions alone: partition "
+          f"{per_step['scan_ms'] * 1e3:.1f} us, stable argsort "
+          f"{per_step['sort_ms'] * 1e3:.1f} us")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
     t = phase("12 train step, card vs CPU (float32, small, same weights and "
@@ -926,21 +1114,18 @@ def main():
     record = {"kernels": [
         dict(K1, route="cuda", launches=launches + k1_train,
              launches_by_path={"eval": launches, "train": k1_train},
-             max_abs_err=max_err,
-             ms=sum(r["ms"] for r in rows),
-             plain_ms=sum(r["plain_ms"] for r in rows),
-             bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes",
-             library_ms=sum(r["library_ms"] for r in rows)),
+             max_abs_err=max_err, ms=k1_b2["ms"],
+             plain_ms=k1_b2["plain_ms"], bound_ms=k1_b2["bound_ms"],
+             bound_by="bytes", library_ms=k1_b2["library_ms"]),
         dict(K2, route="cuda", launches=k2_train,
              max_abs_err=max([k2_err] + [r["max_abs_err"] for r in k2_rows]),
-             ms=sum(r["ms"] for r in k2_rows),
-             plain_ms=sum(r["plain_ms"] for r in k2_rows),
-             bound_ms=sum(r["bound_ms"] for r in k2_rows),
-             bound_by="operations",
-             library_ms=sum(r["library_ms"] for r in k2_rows)),
+             ms=per_step["ms"], plain_ms=per_step["plain_ms"],
+             bound_ms=per_step["bound_ms"], bound_by="operations",
+             library_ms=per_step["library_ms"]),
     ]}
-    print("(K1's times: the 7 searches of one eval batch build; K2's: the 4 "
-          "launches of one train step)")
+    print("(K1's times: the 7 searches of one eval batch build, one grouped "
+          "launch; K2's: the 4 nn_min calls of one train step, partitions "
+          "included)")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps(record))

@@ -125,3 +125,26 @@ def test_sparse_conv_apply_matches(pyramids, rng, dtype, tol):
         jnp.asarray(mask.numpy()), jnp.dtype(dtype) if dtype else None))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("conv1,searches", [(5, 7), (1, 8)])
+def test_pyramid_build_makes_one_grouped_search(pyramids, monkeypatch,
+                                                conv1, searches):
+    """Every map of a build comes from one searchsorted_left_many call (7
+    searches; 8 when conv1 does not cover the level-0 3^3 map), and the
+    maps equal the fixture's, which equal apr_tpu's."""
+    port, _ = pyramids
+    calls, grouped = [], sparse.searchsorted_left_many
+
+    def spy(s):
+        calls.append(len(s))
+        return grouped(s)
+
+    monkeypatch.setattr(sparse, "searchsorted_left_many", spy)
+    again = sparse.build_pyramid_from_level(port.levels[0], CAPS, conv1)
+    assert calls == [searches]
+    for got, want in zip(again.same_maps + again.down_maps + again.up_maps,
+                         port.same_maps + port.down_maps + port.up_maps):
+        assert torch.equal(got, want)
+    if conv1 == 5:
+        assert torch.equal(again.conv1_map, port.conv1_map)
