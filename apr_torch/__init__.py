@@ -2,8 +2,10 @@
 
 It runs the FCGF-APR registration eval (voxelize -> sparse pyramid ->
 ResUNet encoder -> feature NN -> RANSAC -> RTE/RRE) through
-``apr_torch.eval.FeatureTester`` and the FCGF-APR training step
-(GenerativePairTrainer) through ``apr_torch.training.trainer.FCGFTrainer``.
+``apr_torch.eval.FeatureTester``, the FCGF-APR training step
+(GenerativePairTrainer) through ``apr_torch.training.trainer.FCGFTrainer``
+and the Predator-APR eval (KP pyramids -> KPFCNN -> overlap * saliency
+sampling -> RANSAC) through ``apr_torch.eval.PredatorTester``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Two hand-written CUDA kernels carry them: the merge-path searchsorted
 behind every kernel map (``csrc/searchsorted.cu``) and the nearest-neighbour

@@ -4,7 +4,9 @@ A flax ``params`` / ``batch_stats`` pair (nested dicts of numpy arrays, as
 ``jax.device_get`` returns them) becomes a state dict of
 :class:`apr_torch.models.resunet.ResUNet2`, and a trainer's whole tree
 (``{"encoder": ..., "generator": ...}`` in both) loads into an
-:class:`apr_torch.training.trainer.FCGFTrainer`.  Names map one to one
+:class:`apr_torch.training.trainer.FCGFTrainer`; a flax PredatorTrainer's
+(``{"model": ..., "generator": ...}``) into an
+:class:`apr_torch.training.predator.PredatorTrainer`.  Names map one to one
 (the GenerativeMLP keeps flax's ``Dense_i`` / ``MaskedBatchNorm_i``),
 except for the ResUNet's norm layers, which flax names by call order:
 
@@ -94,6 +96,36 @@ def resunet_from_flax(name: str, params: Mapping, batch_stats: Mapping,
     """A shipped ResUNet variant on ``device`` with bridged flax weights."""
     return load_flax_resunet_(make_resunet(name, device=device, **kwargs),
                               params, batch_stats)
+
+
+def kpfcnn_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`apr_torch.models.kpfcnn.KPFCNN` from a flax
+    KPFCNN's ``params`` (float32).  Names map one to one: the port names
+    its submodules as flax does (``UnaryBlock``'s unnamed ``Dense_0`` and
+    ``MaskedInstanceNorm_0`` included), its ``Dense`` keeps flax's [in, out]
+    kernel layout, and the frozen ``kernel_points`` and the scalar
+    ``epsilon`` are parameters on both sides."""
+    return _state_dict(params, {}, ".".join)
+
+
+def load_flax_predator_(trainer, params: Mapping, batch_stats: Mapping):
+    """Copy a flax PredatorTrainer's ``params`` / ``batch_stats`` (each with
+    a ``model`` and a ``generator`` subtree; the KPFCNN has no batch stats)
+    into ``trainer``'s modules in place, strictly: every subtree, entry and
+    leaf is used."""
+    for tree in (params, batch_stats):
+        if set(tree) != {"model", "generator"}:
+            raise ValueError(f"flax Predator tree has {sorted(tree)}, the "
+                             f"trainer wants ['generator', 'model']")
+    if batch_stats["model"]:
+        raise ValueError("the flax KPFCNN has batch stats; the port's has "
+                         "none")
+    trainer.model.load_state_dict(kpfcnn_state_dict(params["model"]),
+                                  strict=True)
+    trainer.generator.load_state_dict(
+        mlp_state_dict(params["generator"], batch_stats["generator"]),
+        strict=True)
+    return trainer
 
 
 def load_flax_train_state_(trainer, params: Mapping, batch_stats: Mapping):

@@ -2,8 +2,9 @@
 
 Field names and defaults are the reference's, so a ``config.json`` the
 reference wrote loads with :meth:`APRConfig.from_dict` (fields the port
-does not read yet are dropped).  It holds the fields the registration eval
-and the FCGF training step read; the later slices add theirs.
+does not read yet are dropped).  It holds the fields the two registration
+evals (FCGF and Predator) and the FCGF training step read; the later
+slices add theirs.
 """
 
 from __future__ import annotations
@@ -49,6 +50,26 @@ class APRConfig:
     # "exact" (plain brute force), "pallas" (brute force through kernel K2)
     chamfer_mode: str = "window"
     chamfer_cell_multiplier: float = 4.0   # cell = multiplier * voxel_size
+
+    # --- KPConv / Predator path (the reference's YAML field names) ---
+    first_feats_dim: int = 256
+    final_feats_dim: int = 32
+    first_subsampling_dl: float = 0.3
+    conv_radius: float = 4.25
+    deformable: bool = False      # deformable KPConv in resnet blocks
+    modulated: bool = False       # sigmoid-gated kernel points (deformable)
+    num_kernel_points: int = 15
+    KP_extent: float = 2.0
+    condition_feature: bool = True
+    add_cross_score: bool = True
+    gnn_feats_dim: int = 256
+    dgcnn_k: int = 10
+    num_head: int = 4
+    nets: Tuple[str, ...] = ("self", "cross", "self")
+    neighborhood_limits: Tuple[int, ...] = (40, 40, 40, 40)
+    kp_capacities: Tuple[int, ...] = (16384, 4096, 2048, 1024)
+    # GT match radius of the KP batch (make_kp_pair_batch)
+    overlap_radius: float = 0.45
 
     # --- optimizer ---
     optimizer: str = "SGD"

@@ -1,5 +1,7 @@
-"""Registration eval: FeatureTester and capacity bucketing."""
+"""Registration eval: FeatureTester (FCGF), PredatorTester and capacity
+bucketing."""
 
+from apr_torch.eval.predator_tester import PredatorTester
 from apr_torch.eval.tester import FeatureTester, TestStats
 
-__all__ = ["FeatureTester", "TestStats"]
+__all__ = ["FeatureTester", "PredatorTester", "TestStats"]

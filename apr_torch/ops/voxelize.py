@@ -1,21 +1,138 @@
 """Fixed-capacity voxelization over a leading batch of clouds.
 
-The port of ``apr_tpu/ops/voxelize.py::voxelize_lean`` and
-``unique_of_sorted``.  Outputs have static shapes: voxels come in ascending
-packed-key order, padding (and overflow beyond capacity, which drops the
-largest keys) sits at the tail and is flagged by the mask.  ``rep`` is the
-lowest original point index of each voxel (MinkowskiEngine
-``sparse_quantize`` 'sel' parity).
+The port of ``apr_tpu/ops/voxelize.py`` (``voxelize``, ``voxelize_lean``,
+``voxelize_pyramid``, ``dedup_points``, ``unique_of_sorted``).  Outputs
+have static shapes: voxels come in ascending key order, padding (and
+overflow beyond capacity, which drops the largest keys) sits at the tail
+and is flagged by the mask.  ``rep`` is the lowest original point index of
+each voxel (MinkowskiEngine ``sparse_quantize`` 'sel' parity).  Points
+are sorted stably by voxel key, so each voxel's points are one contiguous
+run in original index order; a barycenter sums its run from first to last,
+the order of the reference's segment sum, so the card, the CPU and the
+reference give the same bits.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from apr_torch.ops.hashing import INVALID_KEY, pack_coords, unpack_coords
+from apr_torch.ops.hashing import INVALID_KEY, morton_pack, morton_unpack, \
+    pack_coords, unpack_coords
+
+
+class VoxelGrid(NamedTuple):
+    """Voxelized clouds with static capacity C over N input points each
+    (every field has a leading batch dim B).
+
+    coords int32 [B, C, 3]; keys int32 [B, C] ascending, INVALID at padding;
+    mask bool [B, C]; point_voxel int32 [B, N] voxel of each point (C for
+    masked or overflowed points); counts int32 [B, C]; barycenter float32
+    [B, C, 3] (0 at padding); rep int32 [B, C] lowest member index (N at
+    padding).
+    """
+
+    coords: torch.Tensor
+    keys: torch.Tensor
+    mask: torch.Tensor
+    point_voxel: torch.Tensor
+    counts: torch.Tensor
+    barycenter: torch.Tensor
+    rep: torch.Tensor
+
+
+def _run_sums(values: torch.Tensor, seg: torch.Tensor, num: int):
+    """Sums of the runs of values [B, N, D] whose ids seg [B, N] in [0, num]
+    are non-decreasing along each row; returns (sums [B, num, D], counts
+    [B, num] int32), the sentinel run ``num`` dropped.  Each run adds in
+    order from its first entry (``segment_reduce``), never through
+    atomics, so every device gives the same bits."""
+    b, n = seg.shape
+    counts = torch.zeros((b, num + 1), dtype=torch.int64, device=seg.device)
+    counts.scatter_add_(1, seg.long(),
+                        torch.ones_like(seg, dtype=torch.int64))
+    sums = torch.segment_reduce(values.reshape(b * n, -1), "sum",
+                                lengths=counts.reshape(-1), axis=0)
+    return (sums.reshape(b, num + 1, -1)[:, :num],
+            counts[:, :num].to(torch.int32))
+
+
+def _segment_min(values: torch.Tensor, seg: torch.Tensor, num: int,
+                 fill: int) -> torch.Tensor:
+    out = torch.full((values.shape[0], num + 1), fill, dtype=values.dtype,
+                     device=values.device)
+    out.scatter_reduce_(1, seg.long(), values, "amin", include_self=True)
+    return out[:, :num]
+
+
+def _grid_of_sorted(k_sorted, order, p_sorted, cap: int, unpack):
+    """The :class:`VoxelGrid` of key rows sorted stably (``order`` the
+    original index of each sorted entry, p_sorted its point) on ``cap``
+    voxels; ``unpack`` turns the voxel keys into coordinates."""
+    b, n = k_sorted.shape
+    uniq, seg = unique_of_sorted(k_sorted, cap)
+    vox_mask = uniq != INVALID_KEY
+    found = seg < cap
+    psum, counts = _run_sums(torch.where(found[..., None], p_sorted, 0.0),
+                             seg, cap)
+    barycenter = psum / torch.clamp(counts, min=1)[..., None]
+    rep = torch.where(vox_mask, _segment_min(
+        torch.where(found, order.to(torch.int32), n), seg, cap, n), n)
+    point_voxel = torch.full((b, n), cap, dtype=torch.int32,
+                             device=k_sorted.device)
+    point_voxel.scatter_(1, order, seg)
+    return VoxelGrid(
+        coords=torch.where(vox_mask[..., None], unpack(uniq), 0),
+        keys=uniq, mask=vox_mask, point_voxel=point_voxel, counts=counts,
+        barycenter=torch.where(vox_mask[..., None], barycenter, 0.0),
+        rep=rep)
+
+
+def _sorted_by(keys: torch.Tensor, points: torch.Tensor):
+    k_sorted, order = torch.sort(keys, dim=1, stable=True)
+    return k_sorted, order, torch.gather(points, 1,
+                                         order[..., None].expand(-1, -1, 3))
+
+
+def voxelize(points: torch.Tensor, voxel_size: float, capacity: int,
+             mask: Optional[torch.Tensor] = None) -> VoxelGrid:
+    """Quantize clouds ``points`` [B, N, 3] onto ``capacity`` voxels each;
+    beyond capacity the largest packed keys are dropped and their points
+    map to the sentinel ``capacity``."""
+    b, n, _ = points.shape
+    if mask is None:
+        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    keys = torch.where(mask, pack_coords(voxel_coords(points, voxel_size)),
+                       INVALID_KEY)
+    return _grid_of_sorted(*_sorted_by(keys, points), capacity,
+                           unpack_coords)
+
+
+def voxelize_pyramid(points: torch.Tensor, base_voxel: float,
+                     capacities: Sequence[int],
+                     mask: Optional[torch.Tensor] = None):
+    """Every pyramid level (voxel = base * 2^l) of clouds [B, N, 3] from ONE
+    stable sort by level-0 Morton key: the level-l key is ``key0 >> 3*l``,
+    which keeps the sorted order, so each coarser level is a boundary scan.
+
+    Voxels come in Morton order and ``keys`` holds Morton keys (not the
+    x-major :func:`pack_coords` keys of :func:`voxelize`); overflow drops
+    the Morton-largest voxels.  Returns a tuple of :class:`VoxelGrid`.
+    """
+    b, n, _ = points.shape
+    if mask is None:
+        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    key0 = torch.where(mask, morton_pack(voxel_coords(points, base_voxel)),
+                       INVALID_KEY)
+    k_sorted, order, p_sorted = _sorted_by(key0, points)
+    valid_sorted = k_sorted != INVALID_KEY
+    return tuple(
+        _grid_of_sorted(
+            torch.where(valid_sorted, k_sorted >> (3 * lvl), INVALID_KEY),
+            order, p_sorted, cap, lambda u, lvl=lvl: morton_unpack(u, lvl))
+        for lvl, cap in enumerate(capacities))
 
 
 def voxel_coords(points: torch.Tensor, voxel_size: float) -> torch.Tensor:
@@ -36,19 +153,15 @@ def unique_of_sorted(sorted_keys: torch.Tensor, capacity: int):
     dropped on overflow; seg [B, N] int32 segment id per entry with sentinel
     ``capacity`` for padding and overflow entries).
     """
-    b, n = sorted_keys.shape
     valid = sorted_keys != INVALID_KEY
     is_new = valid.clone()
     is_new[:, 1:] &= sorted_keys[:, 1:] != sorted_keys[:, :-1]
     seg = torch.cumsum(is_new.to(torch.int32), dim=1, dtype=torch.int32) - 1
     seg = torch.where(valid & (seg < capacity), seg, capacity)
     # segment-min into an INVALID-filled buffer: empty segments stay padding
-    uniq = torch.full((b, capacity + 1), INVALID_KEY, dtype=torch.int32,
-                      device=sorted_keys.device)
-    uniq.scatter_reduce_(1, seg.long(),
-                         torch.where(valid, sorted_keys, INVALID_KEY),
-                         "amin", include_self=True)
-    return uniq[:, :capacity].contiguous(), seg
+    uniq = _segment_min(torch.where(valid, sorted_keys, INVALID_KEY), seg,
+                        capacity, INVALID_KEY)
+    return uniq.contiguous(), seg
 
 
 def voxelize_lean(
@@ -71,12 +184,9 @@ def voxelize_lean(
     uniq, seg = unique_of_sorted(k_sorted, capacity)
     vox_mask = uniq != INVALID_KEY
     found = seg < capacity
-    rep = torch.full((b, capacity + 1), n, dtype=torch.int32,
-                     device=points.device)
-    rep.scatter_reduce_(1, seg.long(),
-                        torch.where(found, idx_sorted.to(torch.int32), n),
-                        "amin", include_self=True)
-    rep = torch.where(vox_mask, rep[:, :capacity], n)
+    rep = torch.where(vox_mask, _segment_min(
+        torch.where(found, idx_sorted.to(torch.int32), n), seg, capacity, n),
+        n)
     coords = torch.where(vox_mask[..., None], unpack_coords(uniq), 0)
     return coords, uniq, vox_mask, rep
 

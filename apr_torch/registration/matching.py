@@ -47,22 +47,33 @@ def gt_correspondences(
     mask1: Optional[torch.Tensor] = None,
 ) -> Correspondences:
     """Ground-truth matches per pair of a batch: xyz0 [B, N0, 3] warped by
-    transform [B, 4, 4] against xyz1 [B, N1, 3]; each source point keeps its
-    nearest target within ``radius`` (``cap_per_point == 1``, the
-    reference's nearest-within-radius branch, matching.py:132-158).
-    Returns [B, N0] tables."""
-    if cap_per_point != 1:
-        raise NotImplementedError(
-            "gt_correspondences with cap_per_point > 1 needs the radius "
-            "search of ops/neighbors.py, which arrives with slice 3")
-    from apr_torch.ops.chamfer_window import windowed_nn_distances
+    transform [B, 4, 4] against xyz1 [B, N1, 3].
 
+    ``cap_per_point == 1``: each source point keeps its nearest target
+    within ``radius`` (the windowed NN); [B, N0] tables.  Otherwise each
+    source point keeps up to ``cap_per_point`` targets within ``radius``,
+    distance-sorted (the exact radius search); [B, N0 * cap] tables, source
+    i at rows i * cap ... i * cap + cap - 1.  Unmatched rows hold target 0
+    and a False mask."""
     b, n0 = xyz0.shape[:2]
     n1 = xyz1.shape[1]
     if mask0 is None:
         mask0 = torch.ones((b, n0), dtype=torch.bool, device=xyz0.device)
     warped = xyz0 @ transform[:, :3, :3].transpose(1, 2) \
         + transform[:, None, :3, 3]
+    if cap_per_point != 1:
+        from apr_torch.ops.neighbors import radius_neighbors
+
+        tgt = radius_neighbors(warped, xyz1, radius, cap_per_point,
+                               q_mask=mask0, s_mask=mask1).reshape(b, -1)
+        valid = tgt < n1
+        src = torch.arange(n0, dtype=torch.int32, device=xyz0.device)
+        return Correspondences(
+            src_idx=src.repeat_interleave(cap_per_point).expand(b, -1),
+            tgt_idx=torch.where(valid, tgt, 0).to(torch.int32),
+            mask=valid)
+    from apr_torch.ops.chamfer_window import windowed_nn_distances
+
     # the cell-key windowed NN is exact for every pair within
     # cell_size == radius; the window covers the densest voxelized slab
     d2, idx = windowed_nn_distances(

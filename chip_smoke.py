@@ -38,7 +38,18 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    the share of it;
 12. one float32 train step at a small size, card against CPU, from the same
    weights and the same contrastive samples, and the same step with a
-   planted backward fault, which the check must catch.
+   planted backward fault, which the check must catch;
+13. the Predator KP pyramid of one full-capacity pair built on the card and
+   on the CPU (rows that differ end to end, the exact fallbacks), then
+   every search of the build (the windowed search with each selector, the
+   brute-force radius search, the 1-NN) from the same barycenters on both,
+   held exact, with each search's device time;
+14. the KPFCNN forward at full width from the same batch and weights,
+   float32 card against CPU (gated) and bf16 against float32;
+15. the Predator eval slice: PredatorTester.test on 8 synthetic pairs at
+   full width (KPFCNN-256, bf16), pipelined pairs/s, peak memory, recall /
+   RTE / RRE, no K1 or K2 launch (the path runs no hand-written kernel),
+   and a per-stage time split (build, forward, eval).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -79,6 +90,21 @@ TRAIN_FIELDS = dict(chamfer_mode="pallas")
 TRAIN_STEPS = 5
 TRAIN_POINTS = 30000
 TRAIN_APC_POINTS = 60000
+# the Predator eval slice: bench.py's Predator eval config (KPFCNN-256 up
+# to 2048 at the bottleneck, GCN self/cross/self, bf16) on 8 pairs
+KP_FIELDS = dict(trainer="PredatorTrainer", first_feats_dim=256,
+                 gnn_feats_dim=256, final_feats_dim=32, num_kernel_points=15,
+                 nets=("self", "cross", "self"), dgcnn_k=10, num_head=4,
+                 compute_dtype="bfloat16",
+                 kp_capacities=(16384, 4096, 2048, 1024),
+                 neighborhood_limits=(40, 40, 40, 40),
+                 point_capacity=POINT_CAPACITY, test_subsample=SUBSAMPLE,
+                 test_num_ransac_hypotheses=HYPOTHESES)
+KP_PAIR = dict(n_points=N_POINTS, apc_points=4, extent=60.0, distance=15.0)
+# phase 14: max abs difference of features, overlap and saliency, card vs
+# CPU in float32 (ten times the FCGF encoder's: four levels deeper, and a
+# softmax at temperature 0.037 before the decoder)
+KP_F32_TOL = 1e-3
 K1 = dict(name="searchsorted_left", source="apr_torch/csrc/searchsorted.cu",
           replaces="apr_tpu/ops/pallas/searchsorted.py:116")
 K2 = dict(name="nn_min", source="apr_torch/csrc/nn_min.cu",
@@ -702,6 +728,215 @@ def compare_train_step(dev):
           f"and the loss terms agree")
 
 
+def kp_neighbour_phase(dev, pair):
+    """Phase 13: one pair's KP pyramid built twice on the card and once on
+    the CPU from the raw points, every field held bit for bit (two card
+    builds, card vs CPU), then every search of the build from the SAME
+    barycenters (the card's) on both sides, held exact, with each search's
+    device time."""
+    from apr_torch.config import APRConfig
+    from apr_torch.data.synthetic import pad_points
+    from apr_torch.models.kpconv import KPLevel, build_kp_pyramid
+    from apr_torch.ops.neighbors import knn, radius_neighbors, \
+        windowed_radius_neighbors
+
+    c = APRConfig(**KP_FIELDS)
+    pts, msk = zip(*(pad_points(pair[k], c.point_capacity)
+                     for k in ("points0", "points1")))
+    pts, msk = torch.from_numpy(np.stack(pts)), torch.from_numpy(np.stack(msk))
+    kw = dict(first_subsampling_dl=c.first_subsampling_dl,
+              conv_radius=c.conv_radius, num_levels=len(c.kp_capacities),
+              capacities=c.kp_capacities,
+              neighbor_limits=c.neighborhood_limits)
+    win0, fb0 = build_kp_pyramid.windowed, build_kp_pyramid.fallbacks
+    pyr_gpu = build_kp_pyramid(pts.to(dev), msk.to(dev), **kw)
+    torch.cuda.synchronize()
+    pyr_again = build_kp_pyramid(pts.to(dev), msk.to(dev), **kw)
+    win, fb = (build_kp_pyramid.windowed - win0,
+               build_kp_pyramid.fallbacks - fb0)
+    t0 = time.perf_counter()
+    pyr_cpu = build_kp_pyramid(pts, msk, **kw)
+    cpu_s = time.perf_counter() - t0
+    print(f"  card build: {win} windowed (search, cloud) pairs, {fb} fell "
+          f"back to the exact search; CPU build {cpu_s:.1f} s")
+    for lvl, (g, a, h) in enumerate(zip(pyr_gpu.levels, pyr_again.levels,
+                                        pyr_cpu.levels)):
+        for name in KPLevel._fields:
+            if not torch.equal(getattr(g, name), getattr(a, name)):
+                raise AssertionError(f"L{lvl} {name}: two card builds from "
+                                     f"the same points differ")
+        bary = float((g.points.cpu() - h.points).abs().max())
+        rows = {name: int((getattr(g, name).cpu() != getattr(h, name))
+                          .reshape(2, getattr(h, name).shape[1], -1)
+                          .any(-1).sum())
+                for name in KPLevel._fields}
+        print(f"  end to end, L{lvl}: valid {g.mask.sum(1).tolist()} of "
+              f"{g.mask.shape[1]}; barycenters max |card - CPU| {bary:.3e}; "
+              f"rows that differ {rows}")
+        if any(rows.values()):
+            raise AssertionError(f"L{lvl}: the card's pyramid differs from "
+                                 f"the CPU's: {rows}")
+    print("  two card builds bit-identical; card equals CPU in every field")
+
+    # every search of the build from the card's barycenters on both sides
+    lv = [(lvl.points, lvl.mask) for lvl in pyr_gpu.levels]
+    r0 = c.first_subsampling_dl * c.conv_radius
+    cap = c.neighborhood_limits[0]
+
+    def windowed(q, s):
+        return lambda d: windowed_radius_neighbors(
+            lv[q][0].to(d), lv[s][0].to(d), r0, cap, lv[q][1].to(d),
+            lv[s][1].to(d))
+
+    def brute(q, s, r):
+        return lambda d: radius_neighbors(
+            lv[q][0].to(d), lv[s][0].to(d), r, cap, lv[q][1].to(d),
+            lv[s][1].to(d))
+
+    searches = [
+        ("windowed L0 conv", windowed(0, 0)),
+        ("windowed L0 pool", windowed(1, 0)),
+        ("radius L1 conv", brute(1, 1, 2 * r0)),
+        ("radius L1 pool", brute(2, 1, 2 * r0)),
+        ("radius L3 conv", brute(3, 3, 8 * r0)),
+        ("knn 1-NN L0 -> L1", lambda d: knn(
+            lv[0][0].to(d), lv[1][0].to(d), 1, lv[0][1].to(d),
+            lv[1][1].to(d))[0]),
+    ]
+    for name, fn in searches:
+        got, want = fn(dev).cpu(), fn("cpu")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: the card's table differs from "
+                                 f"the CPU's from the same barycenters in "
+                                 f"{int((got != want).sum())} entries")
+        print(f"  {name:28s} {tuple(got.shape)} exact card vs CPU; device "
+              f"time {cuda_ms(lambda: fn(dev), 3):8.3f} ms")
+    build_ms = cuda_ms(lambda: build_kp_pyramid(pts.to(dev), msk.to(dev),
+                                                **kw), 3)
+    print(f"  whole pyramid build (two clouds, one host sync for the "
+          f"overflow flags): {build_ms:.3f} ms a build")
+
+
+def kp_forward_phase(dev, pair):
+    """Phase 14: the KPFCNN forward at full width from one pair's batch and
+    the same weights, float32 on the card against the CPU (gated), and bf16
+    against float32 on the card (printed)."""
+    from dataclasses import replace
+
+    from apr_torch.config import APRConfig
+    from apr_torch.eval.predator_tester import PredatorTester
+    from apr_torch.training.predator import PredatorTrainer
+
+    c32 = replace(APRConfig(**KP_FIELDS), compute_dtype="float32")
+    gpu = PredatorTester(c32, PredatorTrainer(c32, device=dev, seed=0),
+                         device=dev)
+    cpu = PredatorTester(c32, PredatorTrainer(c32, device="cpu", seed=0),
+                         device="cpu")
+    cpu.trainer.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.trainer.model.state_dict().items()})
+    batch = gpu._pair_to_batch(pair)
+    out_gpu = gpu.forward(batch)
+    t0 = time.perf_counter()
+    out_cpu = cpu.forward(tree_map(lambda x: x.cpu(), batch))
+    cpu_s = time.perf_counter() - t0
+    errs = {n: float((getattr(out_gpu, n).cpu() - getattr(out_cpu, n))
+                     .abs().max()) for n in out_gpu._fields}
+    c16 = APRConfig(**KP_FIELDS)
+    bf16 = PredatorTester(c16, PredatorTrainer(c16, device=dev, seed=0),
+                          device=dev)
+    bf16.trainer.model.load_state_dict(gpu.trainer.model.state_dict())
+    out_bf16 = bf16.forward(batch)
+    dev16 = {n: float((getattr(out_bf16, n) - getattr(out_gpu, n))
+                      .abs().max()) for n in out_gpu._fields}
+    print(f"  float32 card vs CPU, max abs err (tolerance {KP_F32_TOL:g}; "
+          f"CPU forward {cpu_s:.1f} s): "
+          + "  ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    print("  bf16 vs float32 on the card, max abs deviation: "
+          + "  ".join(f"{n} {e:.3e}" for n, e in dev16.items()))
+    print(f"  overlap0 on the card: mean {float(out_gpu.overlap0.mean()):.4f}"
+          f" std {float(out_gpu.overlap0.std()):.4f} over "
+          f"{int(batch.pyr0.levels[0].mask.sum())} valid points")
+    if not max(errs.values()) <= KP_F32_TOL:
+        raise AssertionError("float32 KPFCNN differs between card and CPU")
+    if not all(bool(torch.isfinite(v).all()) for v in out_bf16):
+        raise AssertionError("bf16 KPFCNN output is not finite")
+
+
+def predator_slice_phase(dev, pairs):
+    """Phase 15: PredatorTester.test on the pairs at full width (pipelined
+    pairs/s, peak memory, recall / RTE / RRE), then one pair by stage."""
+    from apr_torch.config import APRConfig
+    from apr_torch.eval.predator_tester import PredatorTester
+    from apr_torch.models.kpconv import build_kp_pyramid
+    from apr_torch.ops.distance import nn_min
+    from apr_torch.ops.searchsorted import searchsorted_left
+    from apr_torch.training.predator import PredatorTrainer
+
+    c = APRConfig(**KP_FIELDS)
+    print(f"  KPFCNN first {c.first_feats_dim} gnn {c.gnn_feats_dim} final "
+          f"{c.final_feats_dim} K={c.num_kernel_points} nets {c.nets} "
+          f"k={c.dgcnn_k} heads {c.num_head} {c.compute_dtype} caps "
+          f"{c.kp_capacities} limits {c.neighborhood_limits} points "
+          f"{c.point_capacity} subsample {c.test_subsample} hypotheses "
+          f"{c.test_num_ransac_hypotheses}")
+    trainer = PredatorTrainer(c, device=dev, seed=0)
+    tester = PredatorTester(c, trainer, device=dev)
+    searchsorted_left.launches = 0
+    nn_min.launches = 0
+    fb0 = build_kp_pyramid.fallbacks
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = tester.test(pairs, seed=0)
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ = stats.summary()
+    print(f"  pairs/s {summ['pairs_per_sec']:.3f} (pairs 2-{len(pairs)}, "
+          f"pipelined; {main_s:.2f} s for all {len(pairs)} with the first "
+          f"pair's warm-up)  peak device memory {peak:.2f} GiB")
+    print(f"  recall {summ['recall']:.3f} (random weights: not asserted)")
+    print(f"  RTE {['%.2f' % x for x in stats.rte]}")
+    print(f"  RRE {['%.2f' % x for x in stats.rre]}")
+    print(f"  exact fallbacks of the windowed search: "
+          f"{build_kp_pyramid.fallbacks - fb0}; K1 / K2 launches: "
+          f"{searchsorted_left.launches} / {nn_min.launches} (the Predator "
+          f"path runs no hand-written kernel)")
+    if searchsorted_left.launches or nn_min.launches:
+        raise AssertionError("the Predator path launched K1 or K2")
+    if not (np.isfinite(stats.rte).all() and np.isfinite(stats.rre).all()
+            and np.isfinite(stats.fitness).all()):
+        raise AssertionError("non-finite RTE/RRE/fitness")
+
+    # one pair by stage, synchronised at each boundary: host-clock wall
+    # (second repetition), then a profiled repetition for the card's busy
+    # time, its kernel launches and the top kernels
+    gen = torch.Generator(device=dev).manual_seed(1)
+    stages = dict(
+        build=lambda _: tester._pair_to_batch(pairs[0]),
+        forward=lambda b: (b, tester.forward(b)),
+        eval=lambda bo: tester.eval_one(bo[1], bo[0], gen))
+    wall = {}
+    for rep in range(3):
+        x = None
+        for name, fn in stages.items():
+            if rep < 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    x = fn(x)
+                torch.cuda.synchronize()
+                wall[name] = (time.perf_counter() - t0) * 1e3
+            else:
+                x, busy, n_kern, top = profiled(fn, x)
+                print(f"  {name:7s} wall {wall[name]:8.2f} ms  card busy "
+                      f"{busy:8.2f} ms (idle share "
+                      f"{1 - busy / wall[name]:.2f})  kernels {n_kern}  "
+                      f"top: {top}")
+    print(f"  pair total {sum(wall.values()):.2f} ms (wall, synchronised "
+          f"per stage; busy and launches from a separate profiled run)")
+    if not all(bool(torch.isfinite(v).all()) for v in x):
+        raise AssertionError("non-finite raw outputs of one pair")
+
+
 def main():
     import argparse
 
@@ -1109,6 +1344,23 @@ def main():
     t = phase("12 train step, card vs CPU (float32, small, same weights and "
               "samples)")
     compare_train_step(dev)
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    from apr_torch.data.synthetic import synthetic_pair as kp_pair
+
+    kp_pairs = [kp_pair(seed=s, **KP_PAIR) for s in range(N_PAIRS)]
+    t = phase("13 KP neighbours at full capacity, card vs CPU")
+    kp_neighbour_phase(dev, kp_pairs[0])
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase("14 KPFCNN forward at full width, card vs CPU (float32) and "
+              "bf16")
+    kp_forward_phase(dev, kp_pairs[0])
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase(f"15 Predator slice: PredatorTester.test, {N_PAIRS} pairs, "
+              f"KPFCNN-256 bf16")
+    predator_slice_phase(dev, kp_pairs)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
     record = {"kernels": [

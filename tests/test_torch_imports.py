@@ -37,7 +37,11 @@ def test_every_module_imports_without_jax_or_the_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert {"apr_torch.eval.tester", "apr_torch.ops.searchsorted",
-            "apr_torch.kernels.build", "apr_torch.bridge"} <= set(
+            "apr_torch.kernels.build", "apr_torch.bridge",
+            "apr_torch.eval.predator_tester", "apr_torch.models.gcn",
+            "apr_torch.models.kernel_points", "apr_torch.models.kpconv",
+            "apr_torch.models.kpfcnn", "apr_torch.ops.neighbors",
+            "apr_torch.ops.pooling", "apr_torch.training.predator"} <= set(
                 res["modules"])
     assert len(res["modules"]) == len(list(pkgutil.walk_packages(
         apr_torch.__path__, "apr_torch."))) + 1
@@ -51,14 +55,33 @@ def test_tf32_is_off():
 def _entry_points():
     from apr_torch.bridge import resunet_from_flax
     from apr_torch.config import APRConfig
-    from apr_torch.eval import FeatureTester
+    from apr_torch.eval import FeatureTester, PredatorTester
+    from apr_torch.eval.predator_tester import calibrate_neighbors
     from apr_torch.models import load_model
     from apr_torch.training.batching import make_pair_batch
+    from apr_torch.training.predator import PredatorTrainer, \
+        make_kp_pair_batch
     from apr_torch.training.trainer import FCGFTrainer
 
     cfg = APRConfig(model="ResUNetBN2", model_n_out=8, conv1_kernel_size=3)
+    kp_cfg = APRConfig(first_feats_dim=8, gnn_feats_dim=8, final_feats_dim=4,
+                       generator_model="GenerativeMLP_4",
+                       kp_capacities=(8, 4, 2, 2), point_capacity=8)
     z3, zm = np.zeros((1, 4, 3), np.float32), np.zeros((1, 4), bool)
+
+    class _NoPairs:
+        def __len__(self):
+            return 0
+
     return {
+        "PredatorTrainer": lambda **kw: PredatorTrainer(kp_cfg, **kw),
+        "PredatorTester": lambda **kw: PredatorTester(kp_cfg, None, **kw),
+        "make_kp_pair_batch": lambda **kw: make_kp_pair_batch(
+            z3[0], zm[0], z3[0], zm[0], z3[0, :1], zm[0, :1], z3[0, :1],
+            zm[0, :1], np.eye(4, dtype=np.float32), capacities=(4, 2, 2, 2),
+            **kw),
+        "calibrate_neighbors": lambda **kw: calibrate_neighbors(
+            _NoPairs(), kp_cfg, **kw),
         "FCGFTrainer": lambda **kw: FCGFTrainer(cfg, **kw),
         "FeatureTester": lambda **kw: FeatureTester(cfg, None, **kw),
         "load_model": lambda **kw: load_model("ResUNetBN2")(
@@ -74,7 +97,9 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["FCGFTrainer", "FeatureTester",
                                   "load_model", "resunet_from_flax",
-                                  "make_pair_batch"])
+                                  "make_pair_batch", "PredatorTrainer",
+                                  "PredatorTester", "make_kp_pair_batch",
+                                  "calibrate_neighbors"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card, an entry point given no device raises; device='cpu'
     runs."""

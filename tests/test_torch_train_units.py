@@ -32,6 +32,8 @@ def run():
         _raw(cfg)))
 
 def test_gt_correspondences_match_and_cap_above_one_raises(rng):
+    """Cap 1 matches the reference; cap 2, which raised until the radius
+    search was ported, no longer raises and matches it too."""
     from apr_tpu.registration.matching import gt_correspondences as ref_gt
     from apr_torch.registration.matching import gt_correspondences
 
@@ -50,8 +52,15 @@ def test_gt_correspondences_match_and_cap_above_one_raises(rng):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
     assert got.mask.float().mean() > 0.3
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        gt_correspondences(*map(torch.from_numpy, (x0, x1, t)), 0.45, 2)
+    got2 = gt_correspondences(*map(torch.from_numpy, (x0, x1, t)), 0.45, 2,
+                              torch.from_numpy(m0), torch.from_numpy(m1))
+    for i in range(2):
+        want = jax.jit(lambda a, c, tr, ma, mc: ref_gt(a, c, tr, 0.45, 2,
+                                                       ma, mc))(
+            *map(jnp.asarray, (x0[i], x1[i], t[i], m0[i], m1[i])))
+        for g, w in zip(got2, want):
+            np.testing.assert_array_equal(g[i].numpy(), np.asarray(w))
+    assert got2.mask.sum() > got.mask.sum()
 
 
 # --- layers --------------------------------------------------------------
