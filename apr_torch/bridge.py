@@ -5,7 +5,8 @@ A flax ``params`` / ``batch_stats`` pair (nested dicts of numpy arrays, as
 :class:`apr_torch.models.resunet.ResUNet2`, and a trainer's whole tree
 (``{"encoder": ..., "generator": ...}`` in both) loads into an
 :class:`apr_torch.training.trainer.FCGFTrainer`; a flax PredatorTrainer's
-(``{"model": ..., "generator": ...}``) into an
+(``{"model": ..., "generator": ...}``, the generator an MLP or the
+symmetric KPFCNNDecoder) into an
 :class:`apr_torch.training.predator.PredatorTrainer`.  Names map one to one
 (the GenerativeMLP keeps flax's ``Dense_i`` / ``MaskedBatchNorm_i``),
 except for the ResUNet's norm layers, which flax names by call order:
@@ -110,20 +111,24 @@ def kpfcnn_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def load_flax_predator_(trainer, params: Mapping, batch_stats: Mapping):
     """Copy a flax PredatorTrainer's ``params`` / ``batch_stats`` (each with
-    a ``model`` and a ``generator`` subtree; the KPFCNN has no batch stats)
-    into ``trainer``'s modules in place, strictly: every subtree, entry and
-    leaf is used."""
+    a ``model`` and a ``generator`` subtree) into ``trainer``'s modules in
+    place, strictly: every subtree, entry and leaf is used.  The KPFCNN has
+    no batch stats, nor has a symmetric trainer's generator (a
+    ``KPFCNNDecoder``, whose names map one to one as the KPFCNN's do)."""
     for tree in (params, batch_stats):
         if set(tree) != {"model", "generator"}:
             raise ValueError(f"flax Predator tree has {sorted(tree)}, the "
                              f"trainer wants ['generator', 'model']")
-    if batch_stats["model"]:
-        raise ValueError("the flax KPFCNN has batch stats; the port's has "
-                         "none")
+    stateless = ["model"] + (["generator"] if trainer.symmetric else [])
+    for name in stateless:
+        if batch_stats[name]:
+            raise ValueError(f"the flax {name} has batch stats; the port's "
+                             f"has none")
     trainer.model.load_state_dict(kpfcnn_state_dict(params["model"]),
                                   strict=True)
     trainer.generator.load_state_dict(
-        mlp_state_dict(params["generator"], batch_stats["generator"]),
+        kpfcnn_state_dict(params["generator"]) if trainer.symmetric
+        else mlp_state_dict(params["generator"], batch_stats["generator"]),
         strict=True)
     return trainer
 

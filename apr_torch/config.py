@@ -3,7 +3,7 @@
 Field names and defaults are the reference's, so a ``config.json`` the
 reference wrote loads with :meth:`APRConfig.from_dict` (fields the port
 does not read yet are dropped).  It holds the fields the two registration
-evals (FCGF and Predator) and the FCGF training step read; the later
+evals (FCGF and Predator) and the two training steps read; the later
 slices add theirs.
 """
 
@@ -70,6 +70,17 @@ class APRConfig:
     kp_capacities: Tuple[int, ...] = (16384, 4096, 2048, 1024)
     # GT match radius of the KP batch (make_kp_pair_batch)
     overlap_radius: float = 0.45
+
+    # --- Predator MetricLoss (losses/circle.py) ---
+    pos_margin: float = 0.1
+    neg_margin: float = 1.4
+    log_scale: float = 48.0
+    pos_radius: float = 0.21
+    safe_radius: float = 0.75
+    matchability_radius: float = 0.3
+    max_points: int = 512
+    w_circle_loss: float = 1.0
+    w_overlap_loss: float = 1.0
 
     # --- optimizer ---
     optimizer: str = "SGD"

@@ -1,1 +1,2 @@
-"""Training losses of the FCGF path (port of ``apr_tpu/losses``)."""
+"""Training losses of the FCGF and Predator paths (port of
+``apr_tpu/losses``)."""

@@ -7,8 +7,9 @@
   finer level, the finer level's radius) and the 1-NN upsample table.
   Levels of 8192 voxels or more search through the windowed radius search;
   a search whose slab overflowed its window reruns through the exact
-  search.  The overflow flags of every windowed search of a build are read
-  with one host sync, after all of them are queued.
+  search (unless the caller keeps overflowed tables, as the grouped train
+  build does).  The overflow flags of every windowed search of a build are
+  read with one host sync, after all of them are queued.
 - :class:`KPConvLayer` computes every kernel point's influence at once and
   reduces neighbours with one batched product, then mixes kernel points
   with one ``[F, K*Cin] @ [K*Cin, Cout]`` product; the pair axis folds into
@@ -80,6 +81,7 @@ def build_kp_pyramid(
     num_levels: int = 4,
     capacities: Sequence[int] = (16384, 4096, 1024, 256),
     neighbor_limits: Sequence[int] = (40, 40, 40, 40),
+    overflow_fallback: bool = True,
 ) -> KPPyramid:
     """The KP pyramid of every cloud of points [B, N, 3] / mask [B, N]
     (the reference's collate_fn_descriptor).  The conv radius starts at
@@ -88,8 +90,12 @@ def build_kp_pyramid(
     coarser level.
 
     A windowed search whose slab overflowed its window in some cloud
-    reruns, for those clouds, through the exact search.  ``build_kp_pyramid.windowed`` and ``.fallbacks`` count the
-    (search, cloud) pairs that went through the window and that fell back.
+    reruns, for those clouds, through the exact search.  With
+    ``overflow_fallback=False`` an overflowed table stays as it is and the
+    build makes no host sync, as the reference's grouped train build
+    (``build_batch_group``) keeps it.  ``build_kp_pyramid.windowed`` and
+    ``.fallbacks`` count the (search, cloud) pairs that went through the
+    window and that fell back.
     """
     grids = voxelize_pyramid(points, first_subsampling_dl, capacities, mask)
     pts = [g.barycenter for g in grids]
@@ -103,7 +109,9 @@ def build_kp_pyramid(
                                     s_mask=s_mask)
         out, ovf = windowed_radius_neighbors(
             q, s, r, cap, q_mask=q_mask, s_mask=s_mask, with_overflow=True)
-        pending.append((out, ovf, (q, s, r, cap, q_mask, s_mask)))
+        build_kp_pyramid.windowed += b
+        if overflow_fallback:
+            pending.append((out, ovf, (q, s, r, cap, q_mask, s_mask)))
         return out
 
     levels = []
@@ -124,7 +132,6 @@ def build_kp_pyramid(
                               pools=pools, upsamples=up))
         r = r * 2
 
-    build_kp_pyramid.windowed += b * len(pending)
     if pending:
         # one host sync for every overflow flag of the build
         flags = torch.stack([ovf for _, ovf, _ in pending]).cpu() > 0
@@ -236,8 +243,12 @@ class KPConvLayer(nn.Module):
         if self.ones_input:
             neighb_x = None
         else:
+            # a gather whose backward sums each row's duplicates after one
+            # sort and skips the shadow row: the backward of x_pad[flat_idx]
+            # accumulates the shadow row's many duplicates one by one
             x_pad = torch.cat([x.reshape(p * ns, cin), x.new_zeros((1, cin))])
-            neighb_x = _cast(x_pad[flat_idx], cd)             # [F, nmax, Cin]
+            neighb_x = _cast(F.embedding(flat_idx, x_pad, padding_idx=p * ns),
+                             cd)                              # [F, nmax, Cin]
 
         # every kernel point's influence at once, in float32
         centers = kernel_points[None, None]                   # [1, 1, K, 3]

@@ -11,8 +11,8 @@ width doubling after each strided block; a 1x1 bottleneck to
 3x [nearest upsample + unary with the skip]; L2-normalised features and
 sigmoid overlap / saliency, NaNs scrubbed.
 
-``KPFCNNDecoder`` (the symmetric NPR decoder) belongs to Predator training
-and is not ported yet.
+``KPFCNNDecoder`` is the symmetric NPR decoder of Predator training: a
+second KPConv U-Net over the same pyramids, fed the KPFCNN's features.
 """
 
 from __future__ import annotations
@@ -70,12 +70,14 @@ class KPEncoder(nn.Module):
         def extent(radius):
             return radius * kp_extent / conv_radius
 
-        kw = dict(num_kernel_points=num_kernel_points,
+        # num_kernel_points reaches the first block only: the reference
+        # builds every bottleneck block with its default of 15
+        rk = dict(deformable=deformable, modulated=modulated,
                   compute_dtype=compute_dtype)
-        rk = dict(deformable=deformable, modulated=modulated, **kw)
         out_dim = first_feats_dim
-        self.enc_simple = SimpleBlock(in_dim, out_dim, r, extent(r),
-                                      ones_input=ones_input, **kw)
+        self.enc_simple = SimpleBlock(
+            in_dim, out_dim, r, extent(r), num_kernel_points=num_kernel_points,
+            compute_dtype=compute_dtype, ones_input=ones_input)
         self.enc_l0_resnetb = ResnetBottleneckBlock(
             out_dim // 2, out_dim, r, extent(r), **rk)
         for lvl in range(3):
@@ -212,3 +214,33 @@ class KPFCNN(nn.Module):
         return KPFCNNOutputs(feats0=feats0, feats1=feats1, overlap0=overlap0,
                              overlap1=overlap1, saliency0=saliency0,
                              saliency1=saliency1)
+
+
+class KPFCNNDecoder(nn.Module):
+    """Symmetric NPR decoder: (feats0, feats1, pyr0, pyr1) -> the two
+    clouds' L2-normalised ``point_generation_ratio * 3`` offsets, [N0, r*3]
+    each.  A second :class:`KPEncoder` (fed the features, not ones) and a
+    :class:`KPDecoder`; its norms take joint statistics over both clouds,
+    as the reference stacks them."""
+
+    def __init__(self, in_dim: int = 32, point_generation_ratio: int = 4,
+                 first_feats_dim: int = 256,
+                 first_subsampling_dl: float = 0.3, conv_radius: float = 4.25,
+                 kp_extent: float = 2.0, num_kernel_points: int = 15,
+                 deformable: bool = False, modulated: bool = False,
+                 compute_dtype: Optional[str] = None):
+        super().__init__()
+        self.encoder = KPEncoder(
+            in_dim, first_feats_dim, first_subsampling_dl, conv_radius,
+            kp_extent, num_kernel_points, deformable, modulated,
+            compute_dtype, ones_input=False)
+        self.decoder = KPDecoder(self.encoder.out_dim, self.encoder.skip_dims,
+                                 point_generation_ratio * 3)
+
+    def forward(self, feats0, feats1, pyr0: KPPyramid, pyr1: KPPyramid):
+        pyr = stack_pair(pyr0, pyr1)
+        x, skips = self.encoder(pyr, torch.stack([feats0, feats1]))
+        out = self.decoder(x, skips, pyr)
+        out = torch.where(pyr.levels[0].mask[..., None], _l2_normalize(out),
+                          0.0)
+        return out[0], out[1]

@@ -1,1 +1,1 @@
-"""Batch assembly and the encoder side of the FCGF trainer."""
+"""Batch assembly and the trainers of the FCGF and Predator paths."""

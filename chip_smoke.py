@@ -49,7 +49,21 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
 15. the Predator eval slice: PredatorTester.test on 8 synthetic pairs at
    full width (KPFCNN-256, bf16), pipelined pairs/s, peak memory, recall /
    RTE / RRE, no K1 or K2 launch (the path runs no hand-written kernel),
-   and a per-stage time split (build, forward, eval).
+   and a per-stage time split (build, forward, eval);
+16. the Predator training slice: PredatorTrainer.train_step at
+   configs/train/kitti.yaml's full width (KPFCNN-256 bf16, GenerativeMLP_98
+   ratio 4, SGD 0.01 / 0.98 / 1e-6, KP capacities 32768/8192/4096/2048,
+   APC 131072, max_points 512, chamfer_mode="pallas") for TRAIN_STEPS
+   single-pair steps (w_saliency 0, then 1) with the K1 / K2 launch counts
+   read around them (0 K1, 4 K2 per step), steps/s, peak memory and a
+   stage split; one "window" step, one valid_step and one
+   train_step_batched_fused at B = 2 (8 K2 launches); then K2 at this
+   step's shapes against its plain version (exact), timed against its
+   bound;
+17. one float32 Predator train step at a small size, card against CPU,
+   from the same weights and correspondence draws, and the same step with
+   a planted backward fault (the GCN's attention message detached), which
+   the check must catch.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -105,6 +119,34 @@ KP_PAIR = dict(n_points=N_POINTS, apc_points=4, extent=60.0, distance=15.0)
 # CPU in float32 (ten times the FCGF encoder's: four levels deeper, and a
 # softmax at temperature 0.037 before the decoder)
 KP_F32_TOL = 1e-3
+# the Predator training slice: configs/train/kitti.yaml's model, loss and
+# optimizer at full width (KPFCNN-256, GCN self/cross/self, final 32,
+# GenerativeMLP_98 ratio 4, SGD 0.01 / 0.98 / 1e-6, KP capacities
+# 32768/8192/4096/2048, bf16 by default), with the Chamfer that runs kernel
+# K2 (the yaml sets no Chamfer mode)
+PT_FIELDS = dict(
+    trainer="PredatorTrainer", first_feats_dim=256, final_feats_dim=32,
+    first_subsampling_dl=0.3, conv_radius=4.25, num_kernel_points=15,
+    KP_extent=2.0, gnn_feats_dim=256, dgcnn_k=10, num_head=4,
+    nets=("self", "cross", "self"), generator_model="GenerativeMLP_98",
+    point_generation_ratio=4, pos_margin=0.1, neg_margin=1.4, log_scale=48.0,
+    pos_radius=0.21, safe_radius=0.75, overlap_radius=0.45,
+    matchability_radius=0.3, max_points=512, w_circle_loss=1.0,
+    w_overlap_loss=1.0, loss_ratio=0.001, regularization_strength=0.01,
+    optimizer="SGD", lr=0.01, sgd_momentum=0.98, weight_decay=1e-6,
+    exp_gamma=0.99, batch_size=1, point_capacity=131072,
+    apc_capacity=131072, kp_capacities=(32768, 8192, 4096, 2048),
+    neighborhood_limits=(40, 40, 40, 40), chamfer_mode="pallas")
+# 75000 points fill about 92% of level 0's 32768 voxels; 120000 APC points
+# keep about 42000 after the 0.3 m dedup
+PT_PAIR = dict(n_points=75000, apc_points=120000, extent=60.0, distance=10.0)
+# phase 17's GRAD_TOL: the Predator backward is worse conditioned than the
+# FCGF one.  Near-ties in its max pools, EdgeConv maxima and ReLUs switch
+# under a change of the last bit, and at phase 17's size a 1e-6 relative
+# nudge of the weights moved a gradient leaf by up to 0.11 of its own
+# largest entry (12 nudges on the CPU, 0.02-0.06 for most), where the
+# planted fault moves most leaves by about 1
+PT_GRAD_TOL = 0.3
 K1 = dict(name="searchsorted_left", source="apr_torch/csrc/searchsorted.cu",
           replaces="apr_tpu/ops/pallas/searchsorted.py:116")
 K2 = dict(name="nn_min", source="apr_torch/csrc/nn_min.cu",
@@ -180,8 +222,11 @@ def profiled(fn, x, inference=True):
         with torch.inference_mode(inference):
             out = fn(x)
         torch.cuda.synchronize()
+    # the optimizer's step and zero_grad also leave device-side user
+    # annotations: ranges, not kernels
     dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
     per_name = {}
     for e in dev_events:
         per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -575,9 +620,10 @@ def replay_samples(seed):
     return lambda: setattr(contrastive, "_sample_without_replacement", orig)
 
 
-def step_grads(trainer, batch):
-    """Loss terms, gradients and running stats after one float32 forward
-    and backward on ``batch``, with the replayed contrastive samples.
+def step_grads(trainer, loss):
+    """Loss terms, gradients of the trainable parameters (by module class
+    and name) and running stats after one float32 forward and backward,
+    ``loss()`` giving (loss, metrics), with the replayed samples.
 
     FCGF features of voxels with the same neighbourhood are equal, so two
     sampled candidates can tie exactly as an anchor's hardest negative,
@@ -588,15 +634,18 @@ def step_grads(trainer, batch):
     undo = replay_samples(seed=9)
     try:
         trainer.optimizer.zero_grad(set_to_none=False)
-        loss, metrics = trainer.loss_fn(batch, None, train=True)
-        loss.backward()
+        value, metrics = loss()
+        value.backward()
     finally:
         undo()
     return dict(
         metrics={n: float(v) for n, v in metrics.items()},
-        grads={f"{tag}.{k}": p.grad.to("cpu", copy=True) for tag, m in
-               (("encoder", trainer.encoder), ("generator", trainer.generator))
-               for k, p in m.named_parameters()},
+        # a planted fault can leave a leaf with no gradient at all
+        grads={f"{type(m).__name__}.{k}": (
+            torch.zeros_like(p) if p.grad is None else p.grad).to(
+                "cpu", copy=True)
+            for m in trainer.modules() for k, p in m.named_parameters()
+            if p.requires_grad},
         stats={f"{i}.{n}": b.to("cpu", copy=True)
                for i, m in enumerate(trainer.modules())
                for n, b in m.named_buffers()})
@@ -643,22 +692,33 @@ def train_step_readings(dev):
         for a, b in zip(card.modules(), cpu.modules()):
             a.load_state_dict(b.state_dict())
         undo = planted_fault() if fault else (lambda: None)
+        on_card = tree_map(lambda x: x.to(dev), batch)
         try:
-            return step_grads(card, tree_map(lambda x: x.to(dev), batch))
+            return step_grads(card, lambda: card.loss_fn(
+                on_card, None, train=True))
         finally:
             undo()
 
+    return nudged_readings(cpu, lambda: cpu.loss_fn(batch, None, train=True),
+                           card_step)
+
+
+def nudged_readings(cpu, loss, card_step):
+    """(cpu, card, card again, nudged CPU, card with the planted fault),
+    each as step_grads gives it: ``card_step(fault)`` runs the card's
+    step, ``loss`` the CPU's; the nudged CPU's weights move by a 1e-6
+    relative normal draw after the CPU's own step."""
     runs = [card_step(False), card_step(False), card_step(True)]
     before = [{k: v.clone() for k, v in m.state_dict().items()}
               for m in cpu.modules()]
-    c = step_grads(cpu, batch)
+    c = step_grads(cpu, loss)
     for m, state in zip(cpu.modules(), before):
         m.load_state_dict(state)
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for p in cpu.parameters():
             p.mul_(1.0 + 1e-6 * torch.randn(p.shape, generator=gen))
-    return c, runs[0], runs[1], step_grads(cpu, batch), runs[2]
+    return c, runs[0], runs[1], step_grads(cpu, loss), runs[2]
 
 
 def leaf_errors(c, *others):
@@ -692,14 +752,21 @@ def compare_train_step(dev):
     own change under a 1e-6 relative nudge of the weights, a second card
     run's difference and the difference that a planted backward fault
     makes, and fails unless the gradient check catches that fault."""
-    c, card, again, nudged, faulted = train_step_readings(dev)
+    check_step(train_step_readings(dev), GRAD_TOL, "no reverse_k flip")
+
+
+def check_step(readings, grad_tol, fault):
+    """Hold a card train step's readings to the CPU's (see
+    compare_train_step), printing the largest differences beside the
+    nudged CPU's, a second card run's and the planted ``fault``'s."""
+    c, card, again, nudged, faulted = readings
     print("  " + "  ".join(f"{n} cpu {c['metrics'][n]:.7g} card "
                            f"{card['metrics'][n]:.7g}"
                            for n in c["metrics"]))
     bad = [f"loss term {n}" for n, v in c["metrics"].items()
            if not abs(card["metrics"][n] - v) <= 1e-4 * abs(v) + 1e-6]
     errs = leaf_errors(c, card, nudged, again, faulted)
-    for kind, tol in (("grads", GRAD_TOL), ("stats", 1e-4)):
+    for kind, tol in (("grads", grad_tol), ("stats", 1e-4)):
         rows = sorted(((e, n, share) for k, n, share, e in errs
                        if k == kind), reverse=True)
         bad += [f"{kind} {n}" for e, n, _ in rows if not e[0] <= tol]
@@ -708,15 +775,15 @@ def compare_train_step(dev):
               f"change under a 1e-6 nudge of the weights, a second card "
               f"run's difference and the planted fault's:")
         for e, n, share in rows[:6]:
-            print(f"    {n:36s} card {e[0]:.2e}  nudged CPU {e[1]:.2e}  card "
+            print(f"    {n:48s} card {e[0]:.2e}  nudged CPU {e[1]:.2e}  card "
                   f"again {e[2]:.2e}  fault {e[3]:.2e}  (leaf {share:.1e} of "
                   f"the largest)")
         print(f"    largest over all {len(rows)}: " + "  ".join(
             f"{what} {max(e[i] for e, _, _ in rows):.2e}" for i, what in
             enumerate(("card", "nudged CPU", "card again", "fault"))))
     caught = sorted((e[3], n) for k, n, _, e in errs
-                    if k == "grads" and e[3] > GRAD_TOL)
-    print(f"  planted fault (no reverse_k flip): {len(caught)} of "
+                    if k == "grads" and e[3] > grad_tol)
+    print(f"  planted fault ({fault}): {len(caught)} of "
           f"{len(c['grads'])} gradient leaves beyond tolerance; largest "
           + ", ".join(f"{n} {e:.2e}" for e, n in caught[::-1][:3]))
     if bad:
@@ -906,14 +973,51 @@ def predator_slice_phase(dev, pairs):
             and np.isfinite(stats.fitness).all()):
         raise AssertionError("non-finite RTE/RRE/fitness")
 
-    # one pair by stage, synchronised at each boundary: host-clock wall
-    # (second repetition), then a profiled repetition for the card's busy
-    # time, its kernel launches and the top kernels
     gen = torch.Generator(device=dev).manual_seed(1)
-    stages = dict(
+    x = stage_split(dict(
         build=lambda _: tester._pair_to_batch(pairs[0]),
         forward=lambda b: (b, tester.forward(b)),
-        eval=lambda bo: tester.eval_one(bo[1], bo[0], gen))
+        eval=lambda bo: tester.eval_one(bo[1], bo[0], gen)),
+        inference=True, unit="pair")
+    if not all(bool(torch.isfinite(v).all()) for v in x):
+        raise AssertionError("non-finite raw outputs of one pair")
+
+
+def predator_k2_inputs(trainer, batch):
+    """The four (name, queries, supports, s_mask, q_mask) that the "pallas"
+    Chamfer of one Predator train step on ``batch`` hands K2: per cloud,
+    the reconstruction (the train-mode generator's offsets on the metric
+    level-0 points, as losses/generative.py forms it with voxel size 1)
+    against the APC targets, and back.  The running stats are restored."""
+    saved = [b.clone() for b in trainer.buffers()]
+    out = []
+    with torch.no_grad():
+        feats = trainer.model(batch.pyr0, batch.pyr1)
+        offsets = trainer._offsets(feats, batch, train=True)
+        for b, old in zip(trainer.buffers(), saved):
+            b.copy_(old)
+        sides = ((batch.pyr0, batch.apc0, batch.apc0_mask),
+                 (batch.pyr1, batch.apc1, batch.apc1_mask))
+        for side, offs, (pyr, apc, apc_mask) in zip((0, 1), offsets, sides):
+            lv = pyr.levels[0]
+            n, r = lv.mask.shape[0], offs.shape[-1] // 3
+            recon = (offs.reshape(n, r, 3) + lv.points[:, None]).reshape(
+                1, n * r, 3).contiguous()
+            recon_mask = lv.mask.repeat_interleave(r)[None]
+            apc, apc_mask = apc[None].contiguous(), apc_mask[None]
+            out += [(f"cloud {side} recon->APC", recon, apc, apc_mask,
+                     recon_mask),
+                    (f"cloud {side} APC->recon", apc, recon, recon_mask,
+                     apc_mask)]
+    return out
+
+
+def stage_split(stages, inference=False, unit="step"):
+    """One ``unit`` (a step, a pair) by stage, each stage synchronised at
+    its boundaries: host-clock wall (second repetition), then a profiled
+    repetition for the card's busy time, its kernel launches and the top
+    kernels.  Each stage takes the previous one's result; returns the
+    last."""
     wall = {}
     for rep in range(3):
         x = None
@@ -921,20 +1025,223 @@ def predator_slice_phase(dev, pairs):
             if rep < 2:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with torch.inference_mode():
+                with torch.inference_mode(inference):
                     x = fn(x)
                 torch.cuda.synchronize()
                 wall[name] = (time.perf_counter() - t0) * 1e3
             else:
-                x, busy, n_kern, top = profiled(fn, x)
-                print(f"  {name:7s} wall {wall[name]:8.2f} ms  card busy "
+                x, busy, n_kern, top = profiled(fn, x, inference)
+                print(f"  {name:9s} wall {wall[name]:8.2f} ms  card busy "
                       f"{busy:8.2f} ms (idle share "
                       f"{1 - busy / wall[name]:.2f})  kernels {n_kern}  "
                       f"top: {top}")
-    print(f"  pair total {sum(wall.values()):.2f} ms (wall, synchronised "
+    print(f"  {unit} total {sum(wall.values()):.2f} ms (wall, synchronised "
           f"per stage; busy and launches from a separate profiled run)")
-    if not all(bool(torch.isfinite(v).all()) for v in x):
-        raise AssertionError("non-finite raw outputs of one pair")
+    return x
+
+
+def predator_train_phase(dev):
+    """Phase 16: PredatorTrainer.train_step at configs/train/kitti.yaml's
+    full width on synthetic pairs (TRAIN_STEPS single-pair steps, w_saliency
+    0 then 1), with the K1 / K2 launch counts read around them (0 and 4 per
+    step), steps/s, peak memory and a stage split; one step in
+    chamfer_mode="window", one valid_step and one train_step_batched_fused
+    at B = 2 (8 K2 launches: its pairs run one after another); then K2 at
+    this step's shapes, exact against its plain version, timed against
+    its bound.  Returns (K2 launches of the single-pair steps, K2's rows)."""
+    from dataclasses import replace
+
+    from apr_torch.config import APRConfig
+    from apr_torch.data.synthetic import synthetic_pair
+    from apr_torch.models.kpconv import build_kp_pyramid
+    from apr_torch.ops.distance import nn_min
+    from apr_torch.ops.searchsorted import searchsorted_left
+    from apr_torch.training.predator import PredatorTrainer
+
+    c = APRConfig(**PT_FIELDS)
+    print(f"  KPFCNN first {c.first_feats_dim} gnn {c.gnn_feats_dim} final "
+          f"{c.final_feats_dim} K={c.num_kernel_points} nets {c.nets} "
+          f"k={c.dgcnn_k} heads {c.num_head} {c.compute_dtype}; "
+          f"{c.generator_model} ratio {c.point_generation_ratio} loss_ratio "
+          f"{c.loss_ratio}; {c.optimizer} lr {c.lr} momentum "
+          f"{c.sgd_momentum} wd {c.weight_decay}; max_points "
+          f"{c.max_points}; caps {c.kp_capacities} limits "
+          f"{c.neighborhood_limits} points {c.point_capacity} APC "
+          f"{c.apc_capacity}; chamfer {c.chamfer_mode}")
+    t0 = time.perf_counter()
+    pairs = [synthetic_pair(seed=300 + s, **PT_PAIR) for s in range(4)]
+    raws = [raw_batch([p], c) for p in pairs]
+    singles = [tuple(x[0] for x in r) for r in raws]
+    group = [raw_batch(pairs[:2], c), raw_batch(pairs[2:], c)]
+    print(f"  {len(pairs)} synthetic pairs ({PT_PAIR['n_points']} points, "
+          f"{PT_PAIR['apc_points']} APC points) made on the host in "
+          f"{time.perf_counter() - t0:.1f} s (set-up, not timed below)")
+    trainer = PredatorTrainer(c, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = trainer.build_batch(singles[0])
+    lv0 = (batch.pyr0.levels[0], batch.pyr1.levels[0])
+    print(f"  level-0 fill: {[int(lv.mask.sum()) for lv in lv0]} of "
+          f"{c.kp_capacities[0]}; APC after dedup "
+          f"{[int(batch.apc0_mask.sum()), int(batch.apc1_mask.sum())]} of "
+          f"{c.apc_capacity}; GT correspondences "
+          f"{int(batch.corr_mask.sum())}")
+
+    torch.cuda.reset_peak_memory_stats()
+    fb0 = build_kp_pyramid.fallbacks
+    searchsorted_left.launches = 0
+    nn_min.launches = 0
+    step_s, step_metrics = [], []
+    for k in range(TRAIN_STEPS):
+        w_sal = 0.0 if k < (TRAIN_STEPS + 1) // 2 else 1.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(trainer.build_batch(singles[k % 2]),
+                                     gen, w_sal)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_metrics.append({n: float(v) for n, v in metrics.items()})
+    k1_pt, k2_pt = searchsorted_left.launches, nn_min.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, (sec, m) in enumerate(zip(step_s, step_metrics)):
+        print(f"  step {k}: {sec * 1e3:9.1f} ms  " +
+              "  ".join(f"{n} {v:.6g}" for n, v in m.items()))
+    steps_per_s = (TRAIN_STEPS - 1) / sum(step_s[1:])
+    print(f"  steps/s {steps_per_s:.3f} (build + step, synchronised, steps "
+          f"2-{TRAIN_STEPS})  peak device memory {peak:.2f} GiB  exact "
+          f"fallbacks of the windowed search "
+          f"{build_kp_pyramid.fallbacks - fb0}")
+    print(f"  K1 launches {k1_pt}, K2 launches {k2_pt} "
+          f"({k2_pt / TRAIN_STEPS:.0f} per step)")
+    if not all(np.isfinite(v) for m in step_metrics for v in m.values()):
+        raise AssertionError("a Predator train step gave a non-finite loss "
+                             "term")
+    if any(m["skipped_nonfinite"] != 0.0 for m in step_metrics):
+        raise AssertionError("a Predator train step was skipped")
+    if k2_pt != 4 * TRAIN_STEPS:
+        raise AssertionError(f"K2 launched {k2_pt} times in {TRAIN_STEPS} "
+                             f"Predator steps; the pallas Chamfer takes 4 "
+                             f"per step (2 clouds x 2 directions)")
+    if k1_pt != 0:
+        raise AssertionError("the Predator train path launched K1")
+
+    def forward(b):
+        trainer.optimizer.zero_grad(set_to_none=False)
+        return trainer.loss_fn(b, gen, 1.0, True)
+
+    stage_split(dict(build=lambda _: trainer.build_batch(singles[0]),
+                     forward=forward,
+                     backward=lambda out: out[0].backward(),
+                     optimizer=lambda _: trainer.optimizer.step()))
+
+    trainer.config = replace(c, chamfer_mode="window")
+    nn_min.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = {n: float(v) for n, v in trainer.train_step(
+        trainer.build_batch(singles[1]), gen, 1.0).items()}
+    torch.cuda.synchronize()
+    print(f"  window-mode step: {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+          + "  ".join(f"{n} {v:.6g}" for n, v in metrics.items()))
+    if not (all(np.isfinite(v) for v in metrics.values())
+            and metrics["skipped_nonfinite"] == 0.0):
+        raise AssertionError("the window-mode Predator step failed")
+    if nn_min.launches != 0:
+        raise AssertionError("window mode launched K2")
+    trainer.config = c
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    valid = {n: float(v) for n, v in trainer.valid_step(
+        trainer.build_batch(singles[0]), gen, 1.0).items()}
+    torch.cuda.synchronize()
+    print(f"  valid_step: {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+          + "  ".join(f"{n} {v:.6g}" for n, v in valid.items()))
+    if not all(np.isfinite(v) for v in valid.values()):
+        raise AssertionError("the Predator valid_step gave a non-finite "
+                             "metric")
+
+    grouped = trainer.build_batch_group(group[0])
+    nn_min.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, _ = trainer.train_step_batched_fused(grouped, gen, 1.0,
+                                                  group[1])
+    torch.cuda.synchronize()
+    metrics = {n: float(v) for n, v in metrics.items()}
+    print(f"  train_step_batched_fused, B=2: "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms (step and the next "
+          f"group's build), K2 launches {nn_min.launches}  " + "  ".join(
+              f"{n} {v:.6g}" for n, v in metrics.items()))
+    if not (all(np.isfinite(v) for v in metrics.values())
+            and metrics["skipped_nonfinite"] == 0.0):
+        raise AssertionError("the grouped Predator step failed")
+    if nn_min.launches != 8:
+        raise AssertionError(f"the B=2 step launched K2 {nn_min.launches} "
+                             f"times; its pairs run one after another, 4 "
+                             f"each")
+
+    print("  K2 at this step's shapes (the 4 launches of one step):")
+    rows = time_k2(predator_k2_inputs(trainer, trainer.build_batch(
+        singles[0])))
+    return k2_pt, rows
+
+
+def per_step(rows):
+    """K2's rows summed over the launches of one step."""
+    return {k: sum(r[k] for r in rows) for k in (
+        "ms", "partition_ms", "kernel_ms", "plain_ms", "library_ms",
+        "bound_ms", "scan_ms", "sort_ms")}
+
+
+def planted_cross_attention_fault():
+    """Patch the GCN's attention to detach its message: no gradient
+    reaches the cross attention's queries, keys and values, which the
+    card-vs-CPU gradient check must catch.  Returns the undo."""
+    from apr_torch.models import gcn
+
+    orig = gcn._attend
+    gcn._attend = lambda *args: orig(*args).detach()
+    return lambda: setattr(gcn, "_attend", orig)
+
+
+def compare_predator_step(dev):
+    """Phase 17: one float32 Predator train step at a small size, card
+    against CPU, from the same weights, batch (built on the CPU) and
+    correspondence draws: loss terms and running stats within 1e-4, each
+    gradient leaf within PT_GRAD_TOL of its own largest entry (plus
+    GRAD_FLOOR of the largest gradient), beside the CPU's own change under
+    a 1e-6 nudge of the weights, a second card run and a planted backward
+    fault (the GCN's attention message detached), which must fail."""
+    from apr_torch.config import APRConfig
+    from apr_torch.data.synthetic import synthetic_pair
+    from apr_torch.training.predator import PredatorTrainer
+
+    cfg = APRConfig(**dict(
+        PT_FIELDS, first_feats_dim=64, gnn_feats_dim=64,
+        kp_capacities=(4096, 2048, 1024, 512), point_capacity=8192,
+        apc_capacity=8192, max_points=256, compute_dtype="float32"))
+    pair = synthetic_pair(seed=401, n_points=8000, apc_points=6000,
+                          distance=5.0, extent=25.0)
+    cpu = PredatorTrainer(cfg, device="cpu", seed=3)
+    batch = cpu.build_batch(tuple(x[0] for x in raw_batch([pair], cfg)))
+
+    def card_step(fault):
+        card = PredatorTrainer(cfg, device=dev, seed=2)
+        for a, b in zip(card.modules(), cpu.modules()):
+            a.load_state_dict(b.state_dict())
+        undo = planted_cross_attention_fault() if fault else (lambda: None)
+        on_card = tree_map(lambda x: x.to(dev), batch)
+        try:
+            return step_grads(card, lambda: card.loss_fn(
+                on_card, None, 1.0, True))
+        finally:
+            undo()
+
+    lv0 = (batch.pyr0.levels[0], batch.pyr1.levels[0])
+    print(f"  level-0 points {[int(lv.mask.sum()) for lv in lv0]}, GT "
+          f"correspondences {int(batch.corr_mask.sum())}")
+    check_step(nudged_readings(
+        cpu, lambda: cpu.loss_fn(batch, None, 1.0, True), card_step),
+        PT_GRAD_TOL, "attention message detached")
 
 
 def main():
@@ -1140,38 +1447,15 @@ def main():
             and np.isfinite(stats.fitness).all()):
         raise AssertionError("non-finite RTE/RRE/fitness")
 
-    # one pair by stage, synchronised at each boundary: host-clock wall
-    # time (second repetition), then a profiled repetition for the card's
-    # busy time and kernel launches per stage
     gen = torch.Generator(device=dev).manual_seed(1)
-    stages = dict(
+    x = stage_split(dict(
         build=lambda _: tester._pair_to_batch(pairs[0]),
         encode=lambda b: (b, trainer._encode_pair(b)),
         eval=lambda bf: tester.eval_one(
             bf[1][0][0], bf[1][1][0], bf[0].xyz0[0], bf[0].xyz1[0],
             bf[0].pyramid0.levels[0].mask[0],
-            bf[0].pyramid1.levels[0].mask[0], bf[0].t_gt[0], gen),
-    )
-    wall = {}
-    for rep in range(3):
-        x = None
-        for name, fn in stages.items():
-            if rep < 2:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with torch.inference_mode():
-                    x = fn(x)
-                torch.cuda.synchronize()
-                wall[name] = (time.perf_counter() - t0) * 1e3
-            else:
-                x, busy, n_kern, top = profiled(fn, x)
-                print(f"  {name:6s} wall {wall[name]:8.2f} ms  card busy "
-                      f"{busy:8.2f} ms (idle share "
-                      f"{1 - busy / wall[name]:.2f})  kernels {n_kern}  "
-                      f"top: {top}")
-    t_est, rte0, rre0, fit0 = x
-    print(f"  pair total {sum(wall.values()):.2f} ms (wall, synchronised "
-          f"per stage; busy and launches from a separate profiled run)")
+            bf[0].pyramid1.levels[0].mask[0], bf[0].t_gt[0], gen)),
+        inference=True, unit="pair")
     if not all(bool(torch.isfinite(v).all()) for v in x):
         raise AssertionError("non-finite raw outputs of one pair")
     print(f"  phase {time.perf_counter() - t:.1f} s")
@@ -1273,28 +1557,10 @@ def main():
         trainer_t.optimizer.zero_grad(set_to_none=False)
         return trainer_t.loss_fn(batch, gen, train=True)
 
-    stages = dict(build=lambda _: trainer_t.build_batch(raws[0]),
-                  forward=forward,
-                  backward=lambda out: out[0].backward(),
-                  optimizer=lambda _: trainer_t.optimizer.step())
-    wall = {}
-    for rep in range(3):
-        x = None
-        for name, fn in stages.items():
-            if rep < 2:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                x = fn(x)
-                torch.cuda.synchronize()
-                wall[name] = (time.perf_counter() - t0) * 1e3
-            else:
-                x, busy, n_kern, top = profiled(fn, x, inference=False)
-                print(f"  {name:9s} wall {wall[name]:8.2f} ms  card busy "
-                      f"{busy:8.2f} ms (idle share "
-                      f"{1 - busy / wall[name]:.2f})  kernels {n_kern}  "
-                      f"top: {top}")
-    print(f"  step total {sum(wall.values()):.2f} ms (wall, synchronised "
-          f"per stage)")
+    stage_split(dict(build=lambda _: trainer_t.build_batch(raws[0]),
+                     forward=forward,
+                     backward=lambda out: out[0].backward(),
+                     optimizer=lambda _: trainer_t.optimizer.step()))
 
     cfg_w = replace(cfg_t, chamfer_mode="window")
     trainer_t.config = cfg_w
@@ -1325,20 +1591,18 @@ def main():
 
     t = phase("11 K2 at the train step's shapes (the 4 launches of a step)")
     k2_rows = time_k2(k2_inputs(trainer_t, trainer_t.build_batch(raws[0])))
-    per_step = {k: sum(r[k] for r in k2_rows) for k in (
-        "ms", "partition_ms", "kernel_ms", "plain_ms", "library_ms",
-        "bound_ms", "scan_ms", "sort_ms")}
-    print(f"  per step: nn_min {per_step['ms']:.3f} ms (partition "
-          f"{per_step['partition_ms']:.3f} ms, kernel "
-          f"{per_step['kernel_ms']:.3f} ms)  plain "
-          f"{per_step['plain_ms']:.3f} ms  cdist+min "
-          f"{per_step['library_ms']:.3f} ms  bound "
-          f"{per_step['bound_ms']:.3f} ms: nn_min reaches "
-          f"{per_step['bound_ms'] / per_step['ms']:.2f} of the bound, the "
-          f"kernel alone {per_step['bound_ms'] / per_step['kernel_ms']:.2f}")
+    k2_step = per_step(k2_rows)
+    print(f"  per step: nn_min {k2_step['ms']:.3f} ms (partition "
+          f"{k2_step['partition_ms']:.3f} ms, kernel "
+          f"{k2_step['kernel_ms']:.3f} ms)  plain "
+          f"{k2_step['plain_ms']:.3f} ms  cdist+min "
+          f"{k2_step['library_ms']:.3f} ms  bound "
+          f"{k2_step['bound_ms']:.3f} ms: nn_min reaches "
+          f"{k2_step['bound_ms'] / k2_step['ms']:.2f} of the bound, the "
+          f"kernel alone {k2_step['bound_ms'] / k2_step['kernel_ms']:.2f}")
     print(f"  per step, the 8 partitions alone: partition "
-          f"{per_step['scan_ms'] * 1e3:.1f} us, stable argsort "
-          f"{per_step['sort_ms'] * 1e3:.1f} us")
+          f"{k2_step['scan_ms'] * 1e3:.1f} us, stable argsort "
+          f"{k2_step['sort_ms'] * 1e3:.1f} us")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
     t = phase("12 train step, card vs CPU (float32, small, same weights and "
@@ -1363,21 +1627,42 @@ def main():
     predator_slice_phase(dev, kp_pairs)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+    t = phase("16 Predator training slice: PredatorTrainer.train_step, "
+              "kitti.yaml at full width, chamfer_mode=pallas")
+    k2_pt, k2_pt_rows = predator_train_phase(dev)
+    pt_step = per_step(k2_pt_rows)
+    print(f"  per step: nn_min {pt_step['ms']:.3f} ms (kernel "
+          f"{pt_step['kernel_ms']:.3f} ms)  plain {pt_step['plain_ms']:.3f} "
+          f"ms  cdist+min {pt_step['library_ms']:.3f} ms  bound "
+          f"{pt_step['bound_ms']:.3f} ms: nn_min reaches "
+          f"{pt_step['bound_ms'] / pt_step['ms']:.2f} of the bound")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase("17 Predator train step, card vs CPU (float32, small, same "
+              "weights and draws)")
+    compare_predator_step(dev)
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_rows + k2_pt_rows])
     record = {"kernels": [
         dict(K1, route="cuda", launches=launches + k1_train,
-             launches_by_path={"eval": launches, "train": k1_train},
+             launches_by_path={"eval": launches, "train": k1_train,
+                               "predator_train": 0},
              max_abs_err=max_err, ms=k1_b2["ms"],
              plain_ms=k1_b2["plain_ms"], bound_ms=k1_b2["bound_ms"],
              bound_by="bytes", library_ms=k1_b2["library_ms"]),
-        dict(K2, route="cuda", launches=k2_train,
-             max_abs_err=max([k2_err] + [r["max_abs_err"] for r in k2_rows]),
-             ms=per_step["ms"], plain_ms=per_step["plain_ms"],
-             bound_ms=per_step["bound_ms"], bound_by="operations",
-             library_ms=per_step["library_ms"]),
+        dict(K2, route="cuda", launches=k2_train + k2_pt,
+             launches_by_path={"train": k2_train, "predator_train": k2_pt},
+             max_abs_err=k2_err, ms=k2_step["ms"],
+             plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
+             bound_by="operations", library_ms=k2_step["library_ms"],
+             predator_train={k: pt_step[k] for k in (
+                 "ms", "plain_ms", "bound_ms", "library_ms")}),
     ]}
     print("(K1's times: the 7 searches of one eval batch build, one grouped "
-          "launch; K2's: the 4 nn_min calls of one train step, partitions "
-          "included)")
+          "launch; K2's: the 4 nn_min calls of one FCGF train step, "
+          "partitions included, and under predator_train those of one "
+          "Predator train step)")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps(record))

@@ -10,7 +10,7 @@ the reference's random numbers (its sampling uniforms and RANSAC draws).
   fitness within 1e-5 and the same success flag, on random weights and on
   oracle features under which RANSAC recovers the pose;
 - ``test`` pipelined and not; calibrate_neighbors; the training entry
-  points raise until the training slice.
+  points run.
 """
 
 import jax
@@ -228,10 +228,40 @@ def test_calibrate_neighbors_matches(slice_run):
     assert len(got) == 4 and min(got) > 0
 
 
-def test_training_entry_points_raise_until_the_training_slice(slice_run):
-    trainer = slice_run["tester"].trainer
-    for step in (trainer.loss_fn, trainer.train_step, trainer.valid_step):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            step(None)
-    with pytest.raises(NotImplementedError, match="KPFCNNDecoder"):
-        PredatorTrainer(APRConfig(**FIELDS, symmetric=True), device="cpu")
+def test_training_entry_points_run(slice_run):
+    """The trainer of the eval slice trains: loss_fn, train_step and
+    valid_step run on a pair with APC targets (their parity with the
+    reference is held in tests/test_torch_predator_train.py), a symmetric
+    trainer builds its KPFCNNDecoder, and gradient accumulation raises
+    naming its queue item."""
+    from dataclasses import replace
+
+    from apr_torch.data.synthetic import pad_points
+    from apr_torch.models.kpfcnn import KPFCNNDecoder
+
+    cfg = replace(slice_run["tester"].config, pos_radius=1.0,
+                  safe_radius=2.5, matchability_radius=1.2, max_points=128)
+    trainer = PredatorTrainer(cfg, device="cpu", seed=1)
+    pair = synthetic_pair(7, n_points=2500, apc_points=1500, distance=6.0,
+                          extent=30.0)
+    p0, m0 = pad_points(pair["points0"], cfg.point_capacity)
+    p1, m1 = pad_points(pair["points1"], cfg.point_capacity)
+    a0, am0 = pad_points(pair["apc0"], 2048)
+    a1, am1 = pad_points(pair["apc1"], 2048)
+    batch = trainer.build_batch((p0, m0, p1, m1, a0, am0, a1, am1,
+                                 pair["t_gt"]))
+    gen = torch.Generator().manual_seed(0)
+    loss, metrics = trainer.loss_fn(batch, gen)
+    assert loss.requires_grad and np.isfinite(float(loss.detach()))
+    before = [p.detach().clone() for p in trainer.parameters()]
+    metrics = trainer.train_step(batch, gen)
+    assert float(metrics["skipped_nonfinite"]) == 0.0
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert any(not torch.equal(a, p) for a, p in
+               zip(before, trainer.parameters()))
+    valid = trainer.valid_step(batch, gen, w_saliency=1.0)
+    assert all(np.isfinite(float(v)) for v in valid.values())
+    sym = PredatorTrainer(APRConfig(**FIELDS, symmetric=True), device="cpu")
+    assert isinstance(sym.generator, KPFCNNDecoder)
+    with pytest.raises(NotImplementedError, match="B1"):
+        PredatorTrainer(APRConfig(**FIELDS, iter_size=2), device="cpu")

@@ -1,0 +1,290 @@
+"""The Predator-APR train step of apr_torch against apr_tpu's, at
+tests/test_predator.py's small config in float32 with the "pallas"
+Chamfer (kernel K2's path; its plain version here), from the same numpy
+pair, a randomized flax tree bridged into the port and the reference's
+correspondence draws replayed.
+
+Tolerances, each with its reason:
+- the KP batch: integers exact, points within 1e-6;
+- loss terms: rtol 1e-4 (measured: 4e-7 at most);
+- parameters after the step: ``test_torch_train._close`` at rtol 1e-3
+  with a floor of 1e-3 of each tensor's largest entry;
+- the optimizer's first moment (SGD's momentum trace g + wd * p, Adam's
+  (1 - b1) g), that is the gradients: the same, plus 1e-6 of the
+  largest of all leaves for the analytically zero gradients of biases in
+  front of norms (measured: 1.5e-5 of a leaf's largest entry at most).
+  The backward is ill-conditioned at float32 rounding: a ReLU or
+  leaky-ReLU input within ~1e-6 of its kink flips under the ~1e-6
+  rounding differences of its input (as under a 1e-6 relative nudge of
+  the weights), and the flip moves the gradients upstream of it by up to
+  12% of a leaf's largest entry.  The weights' seed (WEIGHT_SEED) is one
+  whose forward has no such input; seeds 0 and 2 have one (in the GCN's
+  cross attention and in the encoder);
+- the generator's running stats: within 1e-5; the frozen kernel points:
+  bit for bit.
+The Adam and grouped steps are in tests/test_torch_predator_batched.py.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apr_tpu.config import APRConfig as RefConfig
+from apr_tpu.data.synthetic import synthetic_pair
+from apr_tpu.training.predator import PredatorTrainer as RefTrainer
+from apr_tpu.training.predator import make_kp_pair_batch
+from apr_torch.bridge import kpfcnn_state_dict, load_flax_predator_, \
+    mlp_state_dict
+from apr_torch.config import APRConfig
+from apr_torch.data.synthetic import pad_points
+from apr_torch.losses import contrastive
+from apr_torch.training.predator import PredatorTrainer
+from test_torch_kpconv import _randomize as randomize_kp
+from test_torch_train import _close
+from test_torch_train import _randomize as randomize_mlp
+
+FIELDS = dict(
+    trainer="PredatorTrainer", final_feats_dim=16, first_feats_dim=32,
+    gnn_feats_dim=32, generator_model="GenerativeMLP_54",
+    point_generation_ratio=2, first_subsampling_dl=1.0, conv_radius=2.5,
+    kp_capacities=(1024, 512, 256, 128), neighborhood_limits=(16,) * 4,
+    point_capacity=3000, apc_capacity=2048, pos_radius=1.0,
+    safe_radius=2.5, overlap_radius=1.2, matchability_radius=1.2,
+    max_points=128, optimizer="SGD", lr=0.01, sgd_momentum=0.98,
+    compute_dtype="float32", chamfer_mode="pallas")
+STEP_KEY, VALID_KEY = 11, 12
+STEP_TOL = dict(rtol=1e-3, floor=1e-3)
+WEIGHT_SEED = 1
+
+
+def raw_pair(cfg, seed=0):
+    """The nine padded arrays of one synthetic pair (test_predator's)."""
+    d = synthetic_pair(seed, n_points=2500, apc_points=2000, distance=8.0,
+                       extent=30.0)
+    p0, m0 = pad_points(d["points0"], cfg.point_capacity)
+    p1, m1 = pad_points(d["points1"], cfg.point_capacity)
+    a0, am0 = pad_points(d["apc0"], cfg.apc_capacity)
+    a1, am1 = pad_points(d["apc1"], cfg.apc_capacity)
+    return p0, m0, p1, m1, a0, am0, a1, am1, d["t_gt"].astype(np.float32)
+
+
+def reference_state(ref_trainer, ref_batch, seed=WEIGHT_SEED):
+    """The reference's init state with every leaf of the model, the
+    generator and its running stats drawn at random (numpy trees)."""
+    state = ref_trainer.init_state(jax.random.PRNGKey(seed), ref_batch)
+    params = dict(jax.device_get(state.params))
+    stats = dict(jax.device_get(state.batch_stats))
+    params["model"] = randomize_kp({"params": params["model"]}, seed + 7)
+    params["generator"] = jax.device_get(
+        randomize_mlp(params["generator"], seed + 8))
+    stats["generator"] = jax.device_get(
+        randomize_mlp(stats["generator"], seed + 9))
+    return state._replace(params=params, batch_stats=stats)
+
+
+def replay(monkeypatch, keys, n_corr):
+    """The port's sampler takes, call after call, the scores the
+    reference's metric_loss draws from each of ``keys``."""
+    queue = [np.asarray(jax.random.uniform(k, (n_corr,))) for k in keys]
+
+    def sample(generator, mask, num):
+        scores = torch.from_numpy(queue.pop(0).copy())
+        return contrastive.top_valid(scores, mask, num)
+    monkeypatch.setattr(contrastive, "_sample_without_replacement", sample)
+
+
+def named(params, stats=None):
+    """A flax Predator tree (MLP generator) as the port's names, ``model.``
+    and ``generator.`` prefixed."""
+    stats = stats or {"model": {}, "generator": {}}
+    out = {f"model.{k}": v for k, v in kpfcnn_state_dict(
+        params["model"]).items()}
+    out.update({f"generator.{k}": v for k, v in mlp_state_dict(
+        params["generator"], stats["generator"]).items()})
+    return out
+
+
+def port_state(trainer):
+    return {f"{tag}.{k}": v.detach().clone() for tag, m in
+            (("model", trainer.model), ("generator", trainer.generator))
+            for k, v in m.state_dict().items()}
+
+
+def port_moments(trainer, slot):
+    """The optimizer's ``slot`` of every trainable parameter, by name."""
+    return {f"{tag}.{k}": trainer.optimizer.state[p][slot].clone()
+            for tag, m in (("model", trainer.model),
+                           ("generator", trainer.generator))
+            for k, p in m.named_parameters() if p.requires_grad}
+
+
+def ref_moments(opt_state, params, stats):
+    """The first-moment tree of an optax state (SGD's trace or Adam's mu),
+    by the port's names, with the same tree structure as ``params``."""
+    leaves = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, dict) and "model" in x)
+        if isinstance(s, dict) and "model" in s]
+    return named(jax.device_get(leaves[0]), stats)
+
+
+def assert_step_matches(got_metrics, want_metrics, trainer, want_params,
+                        want_stats, old_params, want_moment, slot,
+                        param_tol=STEP_TOL):
+    for name, value in want_metrics.items():
+        _close(float(got_metrics[name]), float(value), floor=0, what=name)
+    assert float(got_metrics["skipped_nonfinite"]) == 0.0
+    got = port_state(trainer)
+    want = named(want_params, want_stats)
+    old = named(old_params)
+    assert set(got) == set(want)
+    moved = 0
+    for name, w in want.items():
+        if name.endswith("kernel_points"):
+            assert torch.equal(got[name], w) and torch.equal(w, old[name])
+        elif name.endswith((".mean", ".var")):
+            _close(got[name], w, rtol=1e-5, floor=1e-5, what=name)
+        else:
+            _close(got[name], w, what=name, **param_tol)
+            moved += not torch.equal(got[name], old[name])
+    assert moved > 0.9 * sum(not n.endswith(("kernel_points", ".mean",
+                                             ".var")) for n in want)
+    got_m = port_moments(trainer, slot)
+    want_m = ref_moments(want_moment, want_params, want_stats)
+    # plus 1e-6 of the largest: a bias in front of a norm has an
+    # analytically zero gradient, rounding noise on both sides
+    top = max(float(want_m[name].abs().max()) for name in got_m)
+    for name, g in got_m.items():
+        w = want_m[name]
+        _close(g, w, rtol=1e-3, floor=1e-3,
+               scale=float(w.abs().max()) + 1e-3 * top,
+               what=f"first moment {name}")
+
+
+def port_trainer(cfg, params, stats, seed=0):
+    return load_flax_predator_(PredatorTrainer(cfg, device="cpu", seed=seed),
+                               params, stats)
+
+
+@pytest.fixture(scope="module")
+def run():
+    """The reference's batch, randomized state, one SGD train step and
+    the valid step at w_saliency 0 and 1; the port's config and batch."""
+    ref_cfg, cfg = RefConfig(**FIELDS), APRConfig(**FIELDS)
+    raw = raw_pair(cfg)
+    ref_trainer = RefTrainer(ref_cfg)
+    ref_batch = make_kp_pair_batch(
+        *map(jnp.asarray, raw), first_subsampling_dl=cfg.first_subsampling_dl,
+        conv_radius=cfg.conv_radius, capacities=cfg.kp_capacities,
+        neighbor_limits=cfg.neighborhood_limits,
+        overlap_radius=cfg.overlap_radius)
+    state = reference_state(ref_trainer, ref_batch)
+    step_key = jax.random.PRNGKey(STEP_KEY)
+    state1, metrics = ref_trainer.train_step(state, ref_batch, step_key,
+                                             jnp.asarray(1.0))
+    valid_key = jax.random.PRNGKey(VALID_KEY)
+    valid = [ref_trainer.valid_step(state, ref_batch, valid_key,
+                                    jnp.asarray(w)) for w in (0.0, 1.0)]
+    trainer = port_trainer(cfg, state.params, state.batch_stats)
+    return dict(raw=raw, cfg=cfg, ref_batch=ref_batch, state=state,
+                state1=state1, metrics=metrics, valid=valid,
+                batch=trainer.build_batch(raw),
+                n_corr=int(ref_batch.corr_src.shape[0]))
+
+
+def test_kp_batch_matches_reference(run):
+    got = jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+        lambda t: t.numpy(), tuple(run["batch"])))
+    want = jax.tree_util.tree_leaves(tuple(run["ref_batch"]))
+    assert len(got) == len(want) == 2 * 4 * 5 + 8
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        if g.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g, w)
+    assert int(run["batch"].corr_mask.sum()) > 100
+    assert int(run["batch"].apc0_mask.sum()) > 500
+
+
+def test_train_step_sgd_matches_reference(run, monkeypatch):
+    state, state1 = run["state"], run["state1"]
+    trainer = port_trainer(run["cfg"], state.params, state.batch_stats)
+    replay(monkeypatch, [jax.random.PRNGKey(STEP_KEY)], run["n_corr"])
+    metrics = trainer.train_step(run["batch"], None, 1.0)
+    assert_step_matches(metrics, run["metrics"], trainer, state1.params,
+                        state1.batch_stats, state.params, state1.opt_state,
+                        "momentum_buffer")
+    assert trainer.step == 1
+    # the generator's stats moved, from cloud 0's call into cloud 1's
+    before = named(state.params, state.batch_stats)
+    assert not torch.equal(port_state(trainer)[
+        "generator.MaskedBatchNorm_0.mean"],
+        before["generator.MaskedBatchNorm_0.mean"])
+
+
+def test_valid_step_matches_and_saliency_weight_moves_only_the_loss(
+        run, monkeypatch):
+    state = run["state"]
+    trainer = port_trainer(run["cfg"], state.params, state.batch_stats)
+    before = port_state(trainer)
+    got = []
+    for w in (0.0, 1.0):
+        replay(monkeypatch, [jax.random.PRNGKey(VALID_KEY)], run["n_corr"])
+        got.append({k: float(v) for k, v in
+                    trainer.valid_step(run["batch"], None, w).items()})
+    for g, want in zip(got, run["valid"]):
+        assert set(g) == set(want)
+        for name, value in want.items():
+            _close(g[name], float(value), floor=0, what=name)
+    for name in got[0]:
+        assert (got[0][name] == got[1][name]) == (name != "loss"), name
+    after = port_state(trainer)
+    assert all(torch.equal(before[k], after[k]) for k in before)
+
+
+def test_nonfinite_gate_leaves_every_piece_of_state(run):
+    """A NaN APC point makes the Chamfer NaN: the step is skipped and the
+    parameters, the momentum and the running stats stay bit for bit."""
+    trainer = PredatorTrainer(run["cfg"], device="cpu", seed=3)
+    batch = run["batch"]
+    gen = torch.Generator().manual_seed(0)
+    assert float(trainer.train_step(batch, gen)["skipped_nonfinite"]) == 0.0
+    before = port_state(trainer)
+    momentum = port_moments(trainer, "momentum_buffer")
+    bad = batch._replace(apc0=batch.apc0.clone())
+    bad.apc0[int(torch.nonzero(bad.apc0_mask)[0])] = float("nan")
+    metrics = trainer.train_step(bad, gen)
+    assert float(metrics["skipped_nonfinite"]) == 1.0
+    assert not np.isfinite(float(metrics["loss"]))
+    after = port_state(trainer)
+    for k in before:
+        assert torch.equal(before[k], after[k]), k
+    for k, v in port_moments(trainer, "momentum_buffer").items():
+        assert torch.equal(v, momentum[k]), k
+    assert trainer.step == 2
+    assert float(trainer.train_step(batch, gen)["skipped_nonfinite"]) == 0.0
+
+
+def test_lr_schedule_optimizers_and_iter_size(run):
+    cfg = run["cfg"]
+    trainer = PredatorTrainer(cfg, device="cpu")
+    assert trainer.epoch_lr(10) == pytest.approx(cfg.lr * cfg.exp_gamma ** 10)
+    assert trainer.set_lr(10) == pytest.approx(cfg.lr * cfg.exp_gamma ** 10)
+    assert trainer.optimizer.param_groups[0]["lr"] == pytest.approx(
+        cfg.lr * cfg.exp_gamma ** 10)
+    assert isinstance(trainer.optimizer, torch.optim.SGD)
+    in_opt = {id(p) for g in trainer.optimizer.param_groups
+              for p in g["params"]}
+    frozen = [p for m in trainer.modules() for n, p in m.named_parameters()
+              if n.endswith("kernel_points")]
+    assert frozen and not any(id(p) in in_opt for p in frozen)
+    adam = PredatorTrainer(dataclasses.replace(cfg, optimizer="Adam"),
+                           device="cpu")
+    assert type(adam.optimizer) is torch.optim.AdamW
+    assert adam.optimizer.defaults["weight_decay"] == cfg.weight_decay
+    with pytest.raises(NotImplementedError, match="B1"):
+        PredatorTrainer(dataclasses.replace(cfg, iter_size=2), device="cpu")
