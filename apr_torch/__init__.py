@@ -3,9 +3,12 @@
 It runs the FCGF-APR registration eval (voxelize -> sparse pyramid ->
 ResUNet encoder -> feature NN -> RANSAC -> RTE/RRE) through
 ``apr_torch.eval.FeatureTester``, the FCGF-APR training step
-(GenerativePairTrainer) through ``apr_torch.training.trainer.FCGFTrainer``
-and the Predator-APR eval (KP pyramids -> KPFCNN -> overlap * saliency
-sampling -> RANSAC) through ``apr_torch.eval.PredatorTester``.
+(GenerativePairTrainer) through ``apr_torch.training.trainer.FCGFTrainer``,
+the Predator-APR eval (KP pyramids -> KPFCNN -> overlap * saliency
+sampling -> RANSAC) through ``apr_torch.eval.PredatorTester`` and its
+train step through ``apr_torch.training.predator.PredatorTrainer``, and
+both training loops through ``python -m apr_torch.train`` and ``python -m
+apr_torch.main <yaml>``.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Two hand-written CUDA kernels carry them: the merge-path searchsorted
 behind every kernel map (``csrc/searchsorted.cu``) and the nearest-neighbour

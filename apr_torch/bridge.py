@@ -4,7 +4,8 @@ A flax ``params`` / ``batch_stats`` pair (nested dicts of numpy arrays, as
 ``jax.device_get`` returns them) becomes a state dict of
 :class:`apr_torch.models.resunet.ResUNet2`, and a trainer's whole tree
 (``{"encoder": ..., "generator": ...}`` in both) loads into an
-:class:`apr_torch.training.trainer.FCGFTrainer`; a flax PredatorTrainer's
+:class:`apr_torch.training.trainer.FCGFTrainer` (the generator an MLP
+or, symmetric, a second ResUNet); a flax PredatorTrainer's
 (``{"model": ..., "generator": ...}``, the generator an MLP or the
 symmetric KPFCNNDecoder) into an
 :class:`apr_torch.training.predator.PredatorTrainer`.  Names map one to one
@@ -135,9 +136,10 @@ def load_flax_predator_(trainer, params: Mapping, batch_stats: Mapping):
 
 def load_flax_train_state_(trainer, params: Mapping, batch_stats: Mapping):
     """Copy a flax trainer's ``params`` / ``batch_stats`` (each with an
-    ``encoder`` and, for the generative trainer, a ``generator`` subtree)
-    into ``trainer``'s modules in place, strictly: every subtree, entry and
-    leaf is used.  The optimizer state is left as it is."""
+    ``encoder`` and, for the generative trainer, a ``generator`` subtree:
+    a GenerativeMLP, or a ResUNet for a symmetric trainer) into
+    ``trainer``'s modules in place, strictly: every subtree, entry and leaf
+    is used.  The optimizer state is left as it is."""
     want = {"encoder"} | ({"generator"} if trainer.generator is not None
                           else set())
     for tree in (params, batch_stats):
@@ -147,7 +149,9 @@ def load_flax_train_state_(trainer, params: Mapping, batch_stats: Mapping):
     load_flax_resunet_(trainer.encoder, params["encoder"],
                        batch_stats["encoder"])
     if trainer.generator is not None:
+        to_torch = (resunet_state_dict if trainer.symmetric
+                    else mlp_state_dict)
         trainer.generator.load_state_dict(
-            mlp_state_dict(params["generator"], batch_stats["generator"]),
+            to_torch(params["generator"], batch_stats["generator"]),
             strict=True)
     return trainer

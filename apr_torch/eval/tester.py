@@ -10,6 +10,7 @@ RRE < 5 deg.  Everything after the host-side padding runs on the device.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional
@@ -58,6 +59,23 @@ class TestStats:
                 rre_std=float(rre[succ].std()),
             )
         return out
+
+    def save(self, out_dir: str) -> None:
+        """The eval's files (the reference's tester.py:67-83):
+        ``results.npz`` with the per-pair arrays, and ``success_dists.npy``
+        / ``fail_dists.npy``, the GT pair distances of the registrations
+        that succeeded / failed."""
+        os.makedirs(out_dir, exist_ok=True)
+        succ = np.asarray(self.success, dtype=bool)
+        dists = np.asarray(self.pair_dist, dtype=np.float32)
+        np.savez(os.path.join(out_dir, "results.npz"),
+                 rte=np.asarray(self.rte, np.float32),
+                 rre=np.asarray(self.rre, np.float32), success=succ,
+                 fitness=np.asarray(self.fitness, np.float32),
+                 pair_dist=dists)
+        if len(dists) == len(succ):
+            np.save(os.path.join(out_dir, "success_dists.npy"), dists[succ])
+            np.save(os.path.join(out_dir, "fail_dists.npy"), dists[~succ])
 
 
 class FeatureTester:

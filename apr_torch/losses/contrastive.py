@@ -1,12 +1,22 @@
-"""Hardest-negative contrastive loss (port of
-``apr_tpu/losses/contrastive.py::hardest_contrastive_loss``).
+"""Contrastive metric-learning losses (port of
+``apr_tpu/losses/contrastive.py``).
 
-Sample P positive pairs and two subsets of S candidate points; the hardest
-negative of each positive endpoint is its nearest candidate in feature
-space, excluding pairs that are themselves positives;
-pos_loss = relu(||f0 - f1||^2 - pos_thresh) (squared distance) and
-neg_loss = relu(neg_thresh - min_dist)^2 (Euclidean distance).
-The random-negative and triplet variants arrive with slice 2b.
+``hardest_contrastive_loss``: sample P positive pairs and two subsets of S
+candidate points; the hardest negative of each positive endpoint is its
+nearest candidate in feature space, excluding pairs that are themselves
+positives; pos_loss = relu(||f0 - f1||^2 - pos_thresh) (squared distance)
+and neg_loss = relu(neg_thresh - min_dist)^2 (Euclidean distance).
+``contrastive_loss_random_negatives`` pairs the positives with random
+points, and ``triplet_loss`` is the triplet margin loss with random or
+hardest negatives.
+
+Every random number is drawn through two seams, so that a test can replay
+the reference's draws: :func:`_sample_without_replacement` and
+:func:`_random_picks`.  The Euclidean distances are ``sqrt(sum(d * d))``,
+as the reference's ``jnp.linalg.norm``: at a zero vector their gradient is
+not finite (``torch.linalg.norm``'s would be 0), so a step with a
+zero-length positive is skipped by the trainers' finite gate, as the
+reference's is.
 """
 
 from __future__ import annotations
@@ -36,6 +46,20 @@ def _sample_without_replacement(generator: Optional[torch.Generator],
     this function."""
     return top_valid(torch.rand(mask.shape[0], generator=generator,
                                 device=mask.device), mask, num)
+
+
+def _random_picks(generator: Optional[torch.Generator], num: int,
+                  high: int, device) -> torch.Tensor:
+    """``num`` uniform integers in [0, high) (int64): the triplet loss's
+    random negative of each positive."""
+    return torch.randint(0, high, (num,), generator=generator,
+                         device=device)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """Row norms as ``jnp.linalg.norm(x, axis=1)``: sqrt of the sum of
+    squares, with its non-finite gradient at a zero row."""
+    return torch.sqrt((x * x).sum(1))
 
 
 def _pdist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -130,3 +154,89 @@ def hardest_contrastive_loss(
     neg_loss = 0.5 * ((neg0 * w0).sum() / torch.clamp(w0.sum(), min=1.0)
                       + (neg1 * w1).sum() / torch.clamp(w1.sum(), min=1.0))
     return pos_loss, neg_loss
+
+
+def _positives(generator, feats0, feats1, pos_src, pos_tgt, pos_mask,
+               num_pos):
+    """The features of ``num_pos`` sampled positive pairs and their
+    validity."""
+    pidx, pok = _sample_without_replacement(generator, pos_mask, num_pos)
+    pf0 = feats0[pos_src[pidx.long()].clamp(0, feats0.shape[0] - 1).long()]
+    pf1 = feats1[pos_tgt[pidx.long()].clamp(0, feats1.shape[0] - 1).long()]
+    return pf0, pf1, pok
+
+
+def _masked_mean(terms: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return (terms * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def contrastive_loss_random_negatives(
+    generator: Optional[torch.Generator],
+    feats0: torch.Tensor,
+    feats1: torch.Tensor,
+    pos_src: torch.Tensor,
+    pos_tgt: torch.Tensor,
+    pos_mask: torch.Tensor,
+    mask1: Optional[torch.Tensor] = None,
+    num_pos: int = 1024,
+    num_neg: int = 1024,
+    pos_thresh: float = 0.1,
+    neg_thresh: float = 1.4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ContrastiveLossTrainer's (pos_loss, neg_loss): relu(d -
+    pos_thresh)^2 over sampled positive pairs and relu(neg_thresh - d)^2
+    over the sampled positives' cloud-0 side paired with random valid
+    cloud-1 points."""
+    if mask1 is None:
+        mask1 = torch.ones(feats1.shape[0], dtype=torch.bool,
+                           device=feats1.device)
+    pf0, pf1, pok = _positives(generator, feats0, feats1, pos_src, pos_tgt,
+                               pos_mask, num_pos)
+    nidx, nok = _sample_without_replacement(generator, mask1, num_neg)
+    nf1 = feats1[nidx.long()]
+    take = min(num_pos, num_neg)
+    pos_d = _norm(pf0 - pf1)
+    neg_d = _norm(pf0[:take] - nf1[:take])
+    pos_loss = _masked_mean(torch.relu(pos_d - pos_thresh) ** 2,
+                            pok.float())
+    neg_loss = _masked_mean(torch.relu(neg_thresh - neg_d) ** 2,
+                            (pok[:take] & nok[:take]).float())
+    return pos_loss, neg_loss
+
+
+def triplet_loss(
+    generator: Optional[torch.Generator],
+    feats0: torch.Tensor,
+    feats1: torch.Tensor,
+    pos_src: torch.Tensor,
+    pos_tgt: torch.Tensor,
+    pos_mask: torch.Tensor,
+    mask1: Optional[torch.Tensor] = None,
+    num_pos: int = 1024,
+    num_hn_samples: int = 256,
+    margin: float = 1.0,
+    hardest: bool = False,
+) -> torch.Tensor:
+    """Triplet margin loss relu(margin + d_pos - d_neg) over sampled
+    positives; the negative of each is a random one (``hardest=False``) or
+    the nearest (``hardest=True``) of ``num_hn_samples`` sampled cloud-1
+    points (the Triplet and HardestTriplet trainers)."""
+    if mask1 is None:
+        mask1 = torch.ones(feats1.shape[0], dtype=torch.bool,
+                           device=feats1.device)
+    pf0, pf1, pok = _positives(generator, feats0, feats1, pos_src, pos_tgt,
+                               pos_mask, num_pos)
+    d_pos = _norm(pf0 - pf1)
+    sidx, sok = _sample_without_replacement(generator, mask1, num_hn_samples)
+    d2 = torch.where(sok[None, :], _pdist2(pf0, feats1[sidx.long()]),
+                     float("inf"))
+    if hardest:
+        d_neg = torch.sqrt(d2.min(1).values)
+    else:
+        pick = _random_picks(generator, num_pos, num_hn_samples,
+                             feats0.device)
+        d_neg = torch.sqrt(d2[torch.arange(num_pos, device=d2.device),
+                              pick])
+    w = (pok & torch.isfinite(d_neg)).float()
+    return _masked_mean(torch.relu(margin + d_pos
+                                   - torch.where(w > 0, d_neg, 0.0)), w)

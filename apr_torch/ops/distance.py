@@ -18,7 +18,7 @@ launches the hand-written kernel ``apr_torch/csrc/nn_min.cu`` (or raises);
 on a CPU tensor it runs :func:`nn_min_plain` over the compacted clouds, the
 same function in plain torch ops, whose sums the kernel repeats in the same
 order and rounding (exact agreement, d2 and idx).  ``nn_min.launches``
-counts kernel launches.
+counts kernel launches, from every thread.
 
 ``directed_mean_sq_nn_pallas`` and ``chamfer_distance_pallas`` port the
 custom-VJP wrappers of the same file (:120-174), per cloud over the batch.
@@ -27,6 +27,7 @@ custom-VJP wrappers of the same file (:120-174), per cloud over the batch.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -138,6 +139,7 @@ def _check(queries, supports, s_mask, q_mask) -> None:
 # the kernel's per-query result before any candidate: (inf bits << 32 |
 # 0xffffffff), the packed (d2, index) that every real candidate undercuts
 _NONE = (0x7F800000 << 32) | 0xFFFFFFFF
+_count_lock = threading.Lock()
 
 
 def _launch(q4, s4, nq_count, ns_count):
@@ -159,9 +161,16 @@ def _launch(q4, s4, nq_count, ns_count):
                  ns_count.data_ptr(), packed.data_ptr(), b, nq, ns, stream)
     if err != 0:
         raise RuntimeError(f"nn_min kernel launch failed: CUDA error {err}")
-    nn_min.launches += 1
+    _count_launch()
     d2 = (packed >> 32).to(torch.int32).view(torch.float32)
     return d2, packed & 0xFFFFFFFF
+
+
+def _count_launch():
+    """One more launch in ``nn_min.launches``, exact when several threads
+    launch (a loader's producer thread builds batches)."""
+    with _count_lock:
+        nn_min.launches += 1
 
 
 def _compact_plain(q4, s4, nq_count, ns_count):

@@ -15,12 +15,14 @@ clouds, the seven kernel maps of a pyramid build, in one launch.
 On a CUDA tensor the wrappers launch the hand-written kernel
 ``apr_torch/csrc/searchsorted.cu`` (or raise); on a CPU tensor they run
 :func:`searchsorted_left_plain`, the same function in plain torch ops.
-``searchsorted_left.launches`` counts kernel launches, grouped or single.
+``searchsorted_left.launches`` counts kernel launches, grouped or single,
+from every thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Sequence, Tuple
 
 import torch
@@ -63,6 +65,7 @@ _Ptrs = ctypes.c_void_p * MAX_SEARCHES
 _Ints = ctypes.c_int * MAX_SEARCHES
 _Counts = ctypes.c_longlong * MAX_SEARCHES
 _entry = []        # the loaded C entry point, once per process
+_count_lock = threading.Lock()
 
 
 def _kernel():
@@ -98,8 +101,15 @@ def _launch(searches):
         raise RuntimeError(f"searchsorted_left kernel launch failed: CUDA "
                            f"error {err}")
     if b > 0 and any(counts):
-        searchsorted_left.launches += 1
+        _count_launch()
     return outs
+
+
+def _count_launch():
+    """One more launch in ``searchsorted_left.launches``, exact when
+    several threads launch (a loader's producer thread builds batches)."""
+    with _count_lock:
+        searchsorted_left.launches += 1
 
 
 def searchsorted_left_many(searches: Sequence[Tuple[torch.Tensor,

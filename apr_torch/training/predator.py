@@ -15,8 +15,9 @@ voxel scale), an L2 regularizer and a Chamfer cell of
 Predator MLP (ending Linear-ReLU-BatchNorm; its running stats thread from
 cloud 0's call into cloud 1's) or, with ``symmetric``, the
 :class:`KPFCNNDecoder`.  As in :class:`FCGFTrainer`, the train state is the
-modules plus the optimizer, updated in place, and a step whose loss or a
-gradient is not finite changes nothing.
+modules plus the optimizer, updated in place, with the same gradient
+accumulation (:mod:`apr_torch.training.train_state`), and a step whose loss
+or a gradient is not finite changes nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from apr_torch.models.kpfcnn import KPFCNN, KPFCNNDecoder
 from apr_torch.models.mlp import make_generative_mlp
 from apr_torch.ops.voxelize import dedup_points
 from apr_torch.registration.matching import gt_correspondences
+from apr_torch.training.train_state import TrainerState
 
 
 class KPPairBatch(NamedTuple):
@@ -139,16 +141,12 @@ def make_kp_pair_batch(
     return select_pair(group, 0)
 
 
-class PredatorTrainer:
+class PredatorTrainer(TrainerState):
     """KPFCNN (``model``) and generator with random weights from ``seed``
-    on ``device``, an SGD (coupled decay) or AdamW optimizer, and the train
-    and valid steps.  Gradient accumulation (``iter_size > 1``) raises."""
+    on ``device``, an SGD (coupled decay) or AdamW optimizer (accumulated
+    over ``iter_size`` mini-steps), and the train and valid steps."""
 
     def __init__(self, config: APRConfig, device="cuda", seed: int = 0):
-        if config.iter_size > 1:
-            raise NotImplementedError(
-                "gradient accumulation (iter_size > 1) arrives with queue "
-                "item B1, for both trainers")
         self.config = config
         self.device = resolve_device(device)
         self.symmetric = bool(config.symmetric)
@@ -190,20 +188,10 @@ class PredatorTrainer:
                 in_channels=c.final_feats_dim, final_bn=True,
                 device=self.device, seed=seed + 1)
         self.step = 0
-        self.optimizer = self._make_optimizer()
+        self.reset_optimizer(keep_lr=False)
 
     def modules(self) -> List[torch.nn.Module]:
         return [self.model, self.generator]
-
-    def parameters(self) -> List[torch.nn.Parameter]:
-        """The trainable parameters: every one but the frozen kernel
-        points, which stay out of the optimizer (no decay reaches them, as
-        the reference masks them)."""
-        return [p for m in self.modules() for p in m.parameters()
-                if p.requires_grad]
-
-    def buffers(self) -> List[torch.Tensor]:
-        return [b for m in self.modules() for b in m.buffers()]
 
     def _make_optimizer(self) -> torch.optim.Optimizer:
         """SGD with momentum and coupled weight decay (the reference's
@@ -218,16 +206,6 @@ class PredatorTrainer:
             return torch.optim.AdamW(self.parameters(), lr=c.lr,
                                      weight_decay=c.weight_decay)
         raise NotImplementedError(c.optimizer)
-
-    def epoch_lr(self, epoch: int) -> float:
-        """ExponentialLR parity: lr * gamma^epoch (stepped per epoch)."""
-        return self.config.lr * (self.config.exp_gamma ** epoch)
-
-    def set_lr(self, epoch: int) -> float:
-        lr = self.epoch_lr(epoch)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        return lr
 
     # --- batches --------------------------------------------------------
 
@@ -347,27 +325,6 @@ class PredatorTrainer:
                  for k in metrics[0]})
 
     # --- the train steps ------------------------------------------------
-
-    def _gated_update(self, loss, saved, metrics):
-        """The optimizer step unless the loss or a gradient is not finite:
-        then parameters, optimizer state and running stats (restored from
-        ``saved``) stay as they were.  Trainable parameters that got no
-        gradient get a zero one, so weight decay still reaches them."""
-        params = self.parameters()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        finite = torch.isfinite(loss) & torch.stack(
-            [torch.isfinite(p.grad).all() for p in params]).all()
-        if bool(finite):
-            self.optimizer.step()
-        else:
-            with torch.no_grad():
-                for b, old in zip(self.buffers(), saved):
-                    b.copy_(old)
-        self.step += 1
-        metrics["skipped_nonfinite"] = 1.0 - finite.float()
-        return metrics
 
     def train_step(self, batch: KPPairBatch,
                    generator: Optional[torch.Generator] = None,

@@ -1,11 +1,14 @@
 """FCGF-path trainer (port of ``apr_tpu/training/trainer.py``): the encoder,
-the GenerativePairTrainer's MLP generator, the hardest-contrastive and NPR
-losses, SGD / Adam with coupled weight decay, the train step with its
-non-finite gate, and the validation step.
+the generator of the GenerativePairTrainer (a per-point MLP, or with
+``symmetric`` a second ResUNet over the same pyramid), the contrastive,
+triplet and NPR losses, SGD / Adam with coupled weight decay, gradient
+accumulation, the train step with its non-finite gate (fused with the next
+batch's build or not), and the validation step.
 
-The train state is the modules plus the optimizer, updated in place; the
-step runs eagerly (no jit).  Both clouds of every pair are encoded in one
-2B-cloud forward; in train mode the norms take per-side statistics
+The train state is the modules plus the optimizer, updated in place
+(:class:`apr_torch.training.train_state.TrainerState`); the step runs
+eagerly (no jit).  Both clouds of every pair are encoded in one 2B-cloud
+forward; in train mode the norms take per-side statistics
 (``stats_groups=2``), as the reference's two sequential forwards do.
 """
 
@@ -18,15 +21,15 @@ import torch
 from apr_torch.config import APRConfig
 from apr_torch.device import resolve_device
 from apr_torch.geometry.robust import est_rigid_robust
-from apr_torch.losses.contrastive import hardest_contrastive_loss
+from apr_torch.losses.contrastive import contrastive_loss_random_negatives, \
+    hardest_contrastive_loss, triplet_loss
 from apr_torch.losses.generative import npr_reconstruction
 from apr_torch.models import load_model
 from apr_torch.models.mlp import make_generative_mlp
 from apr_torch.registration.matching import feature_nn_correspondences
 from apr_torch.registration.metrics import hit_ratio, registration_errors
 from apr_torch.training.batching import PairBatch, make_pair_batch
-
-_SLICE2B = "arrives with slice 2b"
+from apr_torch.training.train_state import TrainerState
 
 
 def _zip_tree(fn, a, c):
@@ -46,7 +49,7 @@ def _flatten_pairs(pos_src, pos_tgt, pos_mask, n):
             pos_mask.reshape(-1))
 
 
-class FCGFTrainer:
+class FCGFTrainer(TrainerState):
     """One trainer class, loss selected by name (reference get_trainer)."""
 
     LOSS_MODES = (
@@ -63,12 +66,7 @@ class FCGFTrainer:
         self.config = config
         self.device = resolve_device(device)
         self.generative = config.trainer == "GenerativePairTrainer"
-        if self.generative and config.symmetric:
-            raise NotImplementedError(f"symmetric NPR (a second ResUNet as "
-                                      f"the decoder) {_SLICE2B}")
-        if config.iter_size > 1:
-            raise NotImplementedError(f"gradient accumulation (iter_size > "
-                                      f"1) {_SLICE2B}")
+        self.symmetric = bool(config.symmetric) and self.generative
         self.init_state(seed)
 
     # --- construction / state -------------------------------------------
@@ -86,21 +84,29 @@ class FCGFTrainer:
             conv1_kernel_size=c.conv1_kernel_size,
             bn_momentum=c.bn_momentum, compute_dtype=cd, device=self.device,
             seed=seed)
-        self.generator = (make_generative_mlp(
-            c.generator_model, out_points=c.point_generation_ratio,
-            in_channels=c.model_n_out, bn_momentum=c.bn_momentum,
-            device=self.device, seed=seed + 1) if self.generative else None)
+        if self.symmetric:
+            # the symmetric NPR decoder: a second ResUNet over the same
+            # pyramid, fed the encoder's features (so its conv1 gathers),
+            # emitting point_generation_ratio * 3 offsets per voxel
+            self.generator = load_model(c.generator_model)(
+                in_channels=c.model_n_out,
+                out_channels=c.point_generation_ratio * 3,
+                normalize_feature=False,
+                conv1_kernel_size=c.conv1_kernel_size,
+                bn_momentum=c.bn_momentum, compute_dtype=cd,
+                device=self.device, seed=seed + 1)
+        elif self.generative:
+            self.generator = make_generative_mlp(
+                c.generator_model, out_points=c.point_generation_ratio,
+                in_channels=c.model_n_out, bn_momentum=c.bn_momentum,
+                device=self.device, seed=seed + 1)
+        else:
+            self.generator = None
         self.step = 0
-        self.optimizer = self._make_optimizer()
+        self.reset_optimizer(keep_lr=False)
 
     def modules(self) -> List[torch.nn.Module]:
         return [m for m in (self.encoder, self.generator) if m is not None]
-
-    def parameters(self) -> List[torch.nn.Parameter]:
-        return [p for m in self.modules() for p in m.parameters()]
-
-    def buffers(self) -> List[torch.Tensor]:
-        return [b for m in self.modules() for b in m.buffers()]
 
     def _make_optimizer(self) -> torch.optim.Optimizer:
         """SGD with momentum or Adam, both with coupled weight decay on
@@ -116,17 +122,19 @@ class FCGFTrainer:
                                     weight_decay=c.weight_decay)
         raise NotImplementedError(c.optimizer)
 
-    def epoch_lr(self, epoch: int) -> float:
-        """ExponentialLR parity: lr * gamma^epoch (stepped per epoch)."""
-        return self.config.lr * (self.config.exp_gamma ** epoch)
-
-    def set_lr(self, epoch: int) -> float:
-        lr = self.epoch_lr(epoch)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        return lr
-
     # --- forward helpers ------------------------------------------------
+
+    def _encode(self, feats, pyramid, train: bool = False,
+                stats_groups: int = 1) -> torch.Tensor:
+        """The encoder over ``feats`` [B, C0, 1] and a batched pyramid;
+        train mode uses batch statistics (per interleaved group of
+        ``stats_groups`` clouds) and updates the running stats in place."""
+        self.encoder.train(train)
+        try:
+            with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+                return self.encoder(feats, pyramid, stats_groups=stats_groups)
+        finally:
+            self.encoder.train(False)
 
     def _encode_pair(self, batch: PairBatch, train: bool = False,
                      fold: bool = True):
@@ -139,47 +147,57 @@ class FCGFTrainer:
         moments and apply the momentum updates side 0 then side 1;
         ``fold=False`` runs the two forwards one after the other.
         """
-        self.encoder.train(train)
-        try:
-            with torch.set_grad_enabled(train and torch.is_grad_enabled()):
-                if not fold:
-                    return (self.encoder(batch.feats0, batch.pyramid0),
-                            self.encoder(batch.feats1, batch.pyramid1))
-                b = batch.feats0.shape[0]
+        if not fold:
+            return (self._encode(batch.feats0, batch.pyramid0, train),
+                    self._encode(batch.feats1, batch.pyramid1, train))
+        b = batch.feats0.shape[0]
 
-                def weave(a, c):
-                    return torch.stack([a, c], 1).reshape((2 * b,)
-                                                          + a.shape[1:])
+        def weave(a, c):
+            return torch.stack([a, c], 1).reshape((2 * b,) + a.shape[1:])
 
-                feats = weave(batch.feats0, batch.feats1)
-                pyr = _zip_tree(weave, batch.pyramid0, batch.pyramid1)
-                f = self.encoder(feats, pyr, stats_groups=2 if train else 1)
-                f = f.reshape((b, 2) + f.shape[1:])
-                return f[:, 0], f[:, 1]
-        finally:
-            self.encoder.train(False)
+        f = self._encode(weave(batch.feats0, batch.feats1),
+                         _zip_tree(weave, batch.pyramid0, batch.pyramid1),
+                         train, stats_groups=2 if train else 1)
+        f = f.reshape((b, 2) + f.shape[1:])
+        return f[:, 0], f[:, 1]
 
     def _contrastive(self, generator, f0_flat, f1_flat, src, tgt, pmask, m0,
                      m1):
+        """(pos_loss, neg_loss) of the config's trainer; the triplet
+        trainers' single loss is the positive term."""
         c = self.config
-        if c.trainer not in ("HardestContrastiveLossTrainer",
-                             "GenerativePairTrainer"):
-            raise NotImplementedError(f"the {c.trainer} loss {_SLICE2B}")
-        return hardest_contrastive_loss(
-            generator, f0_flat, f1_flat, src, tgt, pmask, m0, m1,
-            num_pos=c.num_pos_per_batch * c.batch_size,
-            num_hn_samples=c.num_hn_samples_per_batch * c.batch_size,
-            pos_thresh=c.pos_thresh, neg_thresh=c.neg_thresh)
+        num_pos = c.num_pos_per_batch * c.batch_size
+        num_hn = c.num_hn_samples_per_batch * c.batch_size
+        if c.trainer in ("HardestContrastiveLossTrainer",
+                         "GenerativePairTrainer"):
+            return hardest_contrastive_loss(
+                generator, f0_flat, f1_flat, src, tgt, pmask, m0, m1,
+                num_pos=num_pos, num_hn_samples=num_hn,
+                pos_thresh=c.pos_thresh, neg_thresh=c.neg_thresh)
+        if c.trainer == "ContrastiveLossTrainer":
+            return contrastive_loss_random_negatives(
+                generator, f0_flat, f1_flat, src, tgt, pmask, m1,
+                num_pos=num_pos, num_neg=num_pos, pos_thresh=c.pos_thresh,
+                neg_thresh=c.neg_thresh)
+        loss = triplet_loss(
+            generator, f0_flat, f1_flat, src, tgt, pmask, m1,
+            num_pos=num_pos, num_hn_samples=num_hn,
+            hardest=c.trainer == "HardestTripletLossTrainer")
+        return loss, torch.zeros((), device=loss.device)
 
     def _generative_branch(self, feats, pyramid, apc, apc_mask, train):
         """Sum over the batch's clouds of (chamfer + reg * strength) *
         loss_ratio, with the summed chamfer and reg and the mean clamp
-        fraction; every cloud in one batched call."""
+        fraction; every cloud in one batched call.  The generator is the MLP
+        over (feats, mask) or, symmetric, the ResUNet over (feats,
+        pyramid); train mode updates its running stats in place."""
         c = self.config
         mask = pyramid.levels[0].mask                  # [B, C0]
         self.generator.train(train)
         try:
-            mlp_out = self.generator(feats, mask)      # [B, C0, ratio*3]
+            # [B, C0, ratio * 3] raw offsets
+            mlp_out = self.generator(feats, pyramid if self.symmetric
+                                     else mask)
         finally:
             self.generator.train(False)
         anchors = pyramid.levels[0].coords.float() * c.voxel_size
@@ -232,27 +250,25 @@ class FCGFTrainer:
         """One optimization step on ``batch``; ``generator`` draws the
         contrastive samples.  Returns the metrics, with
         ``skipped_nonfinite`` 1.0 when the loss or a gradient was not
-        finite: then parameters, optimizer state and running stats all stay
-        as they were (the reference's validate_gradient gate)."""
+        finite: then parameters, optimizer state, accumulation and running
+        stats all stay as they were (the reference's validate_gradient
+        gate).  With ``iter_size`` k the optimizer steps on every k-th
+        accepted call (:mod:`apr_torch.training.train_state`)."""
         saved = [b.clone() for b in self.buffers()]
-        params = self.parameters()
         self.optimizer.zero_grad(set_to_none=False)
         loss, metrics = self.loss_fn(batch, generator, train=True)
         loss.backward()
-        for p in params:
-            if p.grad is None:   # weight decay reaches every parameter
-                p.grad = torch.zeros_like(p)
-        finite = torch.isfinite(loss) & torch.stack(
-            [torch.isfinite(p.grad).all() for p in params]).all()
-        if bool(finite):
-            self.optimizer.step()
-        else:
-            with torch.no_grad():
-                for b, old in zip(self.buffers(), saved):
-                    b.copy_(old)
-        self.step += 1
-        metrics["skipped_nonfinite"] = 1.0 - finite.float()
-        return metrics
+        return self._gated_update(loss, saved, metrics)
+
+    def train_step_fused(self, batch: PairBatch, raw_next: Tuple,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[Dict[str, torch.Tensor], PairBatch]:
+        """:meth:`train_step` on ``batch``, then the build of the next
+        batch from ``raw_next``'s nine arrays: (metrics, next_batch).  The
+        two share no data; the loop carries ``next_batch`` to the next
+        call."""
+        metrics = self.train_step(batch, generator)
+        return metrics, self.build_batch(raw_next)
 
     def build_batch(self, raw: Tuple) -> PairBatch:
         """Device batch from the nine padded arrays (points0, mask0,
@@ -302,3 +318,10 @@ class FCGFTrainer:
             success=((rtes < c.rte_thresh) & (rres < c.rre_thresh))
             .float().mean())
         return metrics
+
+
+def get_trainer(config: APRConfig, device="cuda", seed: int = 0
+                ) -> FCGFTrainer:
+    """The trainer of ``config.trainer`` (reference train.py get_trainer):
+    one class, the loss selected by name."""
+    return FCGFTrainer(config, device=device, seed=seed)

@@ -63,7 +63,23 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
 17. one float32 Predator train step at a small size, card against CPU,
    from the same weights and correspondence draws, and the same step with
    a planted backward fault (the GCN's attention message detached), which
-   the check must catch.
+   the check must catch;
+18. the FCGF training loop through its CLI (``apr_torch.train.main``) at
+   phase 10's full width with the fused build, over 12 train and 4 val
+   synthetic pairs for one epoch, then ``--resume_dir`` to a second: 3
+   steps an epoch, finite metrics, no skipped step, one K1 launch per
+   batch build and 4 K2 launches per train step and val batch, the
+   artifacts, and the resumed trainer equal to the saved one bit for bit
+   before its first step; loop steps/s, the data / step timers, peak
+   memory; then two full-width iter_size=2 mini-steps (the weights move on
+   the second only) and two symmetric steps (a ResUNetBN2B decoder);
+19. the Predator training loop through the YAML entry
+   (``apr_torch.main.main``) on a copy of configs/train/kitti.yaml (only
+   dataset, chamfer_mode, max_epoch, out_dir and fused_build overridden)
+   over 4 train and 2 val pairs: 0 K1 and 4 K2 launches per train step and
+   val pair, finite metrics, the checkpoint tags; test mode on a copy of
+   configs/test/kitti.yaml with that run's weights (results.npz); two
+   full-width iter_size=2 Predator mini-steps.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -524,7 +540,9 @@ def time_k2(inputs):
     the whole nn_min call (partitions, compaction, kernel, index map), of
     the partitions and compaction alone, of the kernel alone, of the plain
     version and of the library, and the operations bound over the valid
-    pairs, the only pairs the kernel computes."""
+    pairs, the only pairs the kernel computes.  The library call computes
+    every pair of its shape whatever the masks, so it is timed once per
+    shape (21.5 s a launch at both train steps' shapes)."""
     from apr_torch.ops import distance
     from apr_torch.ops.distance import compact, nn_min, nn_min_plain, \
         partition
@@ -534,8 +552,13 @@ def time_k2(inputs):
         return compact(q, qp), compact(s, sp), qp.count, sp.count
 
     rows = []
+    library = {}    # torch.cdist's time depends on the shape alone
     for name, q, s, m, qm in inputs:
         err = k2_check(q, s, m, qm, name)[2]
+        shape = (q.shape[0], q.shape[1], s.shape[1])
+        if shape not in library:
+            library[shape] = cuda_ms(lambda: library_nn(q, s, m), 1,
+                                     warmup=False)
         pairs = int((qm.sum(1).double() * m.sum(1).double()).sum())
         nbytes = (q.numel() + s.numel()) * 4 + m.numel() + qm.numel() + \
             q.shape[0] * q.shape[1] * 8
@@ -557,9 +580,7 @@ def time_k2(inputs):
             sort_ms=cuda_ms(lambda: (partition_by_sort(m),
                                      partition_by_sort(qm)), 5),
             plain_ms=cuda_ms(lambda: nn_min_plain(q, s, m), 1),
-            library_ms=cuda_ms(lambda: library_nn(q, s, m), 1,
-                               warmup=False),
-            bound_ms=bound_ms))
+            library_ms=library[shape], bound_ms=bound_ms))
         r = rows[-1]
         print(f"  {name:20s} B={r['B']} Nq={r['Nq']} Ns={r['Ns']} valid "
               f"pairs {pairs:.3e}  nn_min {r['ms']:8.3f} ms (partition "
@@ -1244,6 +1265,430 @@ def compare_predator_step(dev):
         PT_GRAD_TOL, "attention message detached")
 
 
+# the training loops (phases 18, 19): the synthetic dataset at the
+# reference's point counts, shrunk in pair count only
+LOOP_PAIRS = dict(train=12, val=4, test=4)
+PT_LOOP_PAIRS = dict(train=4, val=2, test=2)
+# phase 10's full width through the CLI (apr_tpu/config.py's defaults,
+# spelled out), with the Chamfer that runs K2 and the fused build
+LOOP_ARGV = [
+    "--trainer", "GenerativePairTrainer", "--model", "ResUNetFatBN",
+    "--model_n_out", "128", "--conv1_kernel_size", "5",
+    "--compute_dtype", "bfloat16", "--batch_size", "4",
+    "--capacities", "16384", "8192", "4096", "2048",
+    "--point_capacity", "131072", "--apc_capacity", "65536",
+    "--generator_model", "GenerativeMLP_98", "--point_generation_ratio", "4",
+    "--optimizer", "SGD", "--lr", "0.1", "--sgd_momentum", "0.9",
+    "--weight_decay", "1e-4", "--chamfer_mode", "pallas",
+    "--fused_build", "true", "--dataset", "synthetic", "--max_epoch", "1"]
+
+
+def shrunk_datasets(counts):
+    """Make ``SyntheticPairDataset`` hold ``counts[phase]`` pairs (and
+    nothing else changed) until the returned function is called."""
+    import apr_torch.data.datasets as dsmod
+
+    real = dsmod.SyntheticPairDataset
+
+    class Shrunk(real):
+        def __init__(self, **kw):
+            kw["num_pairs"] = counts[kw["phase"]]
+            super().__init__(**kw)
+
+    dsmod.SyntheticPairDataset = Shrunk
+
+    def restore():
+        dsmod.SyntheticPairDataset = real
+    return restore
+
+
+def captured_trainers(module, name):
+    """Wrap ``module.<name>`` (a trainer factory) so that every trainer it
+    makes is recorded with a copy of its state dict taken just before its
+    first train step; returns (records, undo)."""
+    made = []
+    real = getattr(module, name)
+
+    def clone(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.clone()
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(clone(v) for v in tree)
+        return tree
+
+    def make(*args, **kw):
+        trainer = real(*args, **kw)
+        rec = {"trainer": trainer, "first": None}
+        made.append(rec)
+        for step in ("train_step", "train_step_batched"):
+            inner = getattr(trainer, step, None)
+            if inner is None:
+                continue
+
+            def wrapped(*a, _inner=inner, **k):
+                if rec["first"] is None:
+                    rec["first"] = clone(trainer.state_dict())
+                return _inner(*a, **k)
+            setattr(trainer, step, wrapped)
+        return trainer
+
+    setattr(module, name, make)
+    return made, lambda: setattr(module, name, real)
+
+
+def bitwise_equal(a, b):
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a, b)))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bitwise_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(bitwise_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def counted_builds(modules):
+    """Count the calls of ``make_pair_batch`` through each of ``modules``
+    (which import it by name); returns (counts, undo)."""
+    counts = {"builds": 0}
+    undo = []
+    for mod in modules:
+        real = mod.make_pair_batch
+
+        def counting(*a, _real=real, **k):
+            counts["builds"] += 1
+            return _real(*a, **k)
+        mod.make_pair_batch = counting
+        undo.append((mod, real))
+
+    def restore():
+        for mod, real in undo:
+            mod.make_pair_batch = real
+    return counts, restore
+
+
+def loop_records(out):
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def accumulation_steps(trainer, batch_of, what, step=None):
+    """Two full-width mini-steps of an ``iter_size=2`` trainer: the
+    parameters must stay bit for bit after the first and move after the
+    second.  ``batch_of(k)`` gives mini-step k's batch."""
+    step = step or trainer.train_step
+    params = [p.detach().clone() for p in trainer.parameters()]
+    times, metrics = [], []
+    for k in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch_of(k))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({n: float(v) for n, v in m.items()})
+        same = all(torch.equal(a, p) for a, p in
+                   zip(params, trainer.parameters()))
+        print(f"  {what} iter_size=2 mini-step {k + 1}: "
+              f"{times[-1] * 1e3:.1f} ms  mini_step "
+              f"{trainer.accumulation.mini_step}  parameters "
+              f"{'unchanged' if same else 'changed'}  loss "
+              f"{metrics[-1]['loss']:.6g}")
+        if same != (k == 0):
+            raise AssertionError(f"{what} iter_size=2: the parameters must "
+                                 f"stay after mini-step 1 and move after 2")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()) or any(
+            m["skipped_nonfinite"] for m in metrics):
+        raise AssertionError(f"{what} iter_size=2 gave a non-finite or "
+                             f"skipped step")
+
+
+def fcgf_loop_phase(dev):
+    """Phase 18: ``apr_torch.train.main`` at phase 10's full width (fused
+    build, K2 Chamfer) over 12 synthetic train pairs and 4 val pairs for
+    one epoch, then ``--resume_dir`` to a second; the launch counts against
+    the loop's builds and steps, the artifacts, a bit-exact resume; then
+    two full-width steps with iter_size=2 and two symmetric steps.  Returns
+    (K1 launches, K2 launches) of the two loop runs."""
+    import shutil
+
+    import apr_torch.data.pipeline as pipeline_mod
+    import apr_torch.training.loop as loop_mod
+    import apr_torch.training.trainer as trainer_mod
+    from apr_torch.data.datasets import make_dataset
+    from apr_torch.data.pipeline import collate_raw
+    from apr_torch.ops.distance import nn_min
+    from apr_torch.ops.searchsorted import searchsorted_left
+    from apr_torch.train import config_from_args, main as train_main
+    from apr_torch.training.trainer import FCGFTrainer
+
+    out = os.path.join(HERE, "build", "chip_smoke", "fcgf_loop")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = LOOP_ARGV + ["--out_dir", out, "--device", DEVICE]
+    cfg = config_from_args(argv)
+    b = cfg.batch_size
+    train_steps = LOOP_PAIRS["train"] // b
+    val_batches = -(-LOOP_PAIRS["val"] // cfg.val_batch_size)
+    print(f"  python -m apr_torch.train {' '.join(LOOP_ARGV)}; "
+          f"{LOOP_PAIRS['train']} train / {LOOP_PAIRS['val']} val synthetic "
+          f"pairs of 30000 points, 60000 APC points")
+    restore = [shrunk_datasets(LOOP_PAIRS)]
+    made, undo = captured_trainers(loop_mod, "get_trainer")
+    restore.append(undo)
+    counts, undo = counted_builds([trainer_mod, pipeline_mod])
+    restore.append(undo)
+    runs = []
+    try:
+        for name, args in (("run", argv),
+                           ("resume", ["--resume_dir", out, "--max_epoch",
+                                       "2", "--device", DEVICE])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            searchsorted_left.launches = 0
+            nn_min.launches = 0
+            counts["builds"] = 0
+            t0 = time.perf_counter()
+            summary = train_main(args)
+            torch.cuda.synchronize()
+            runs.append(dict(
+                name=name, summary=summary, wall=time.perf_counter() - t0,
+                k1=searchsorted_left.launches, k2=nn_min.launches,
+                builds=counts["builds"],
+                peak=torch.cuda.max_memory_allocated() / 2**30))
+    finally:
+        for fn in reversed(restore):
+            fn()
+    for r in runs:
+        s = r["summary"]
+        print(f"  {r['name']}: {r['wall']:.1f} s; epoch steps "
+              f"{s['train_steps']} in {s['train_seconds']:.2f} s = "
+              f"{s['train_steps'] / s['train_seconds']:.3f} loop steps/s "
+              f"(first build, fused steps, last carried step, metric reads)"
+              f"; timers: data {s['data_time'] * 1e3:.1f} ms, step "
+              f"{s['step_time'] * 1e3:.1f} ms; peak device memory "
+              f"{r['peak']:.2f} GiB")
+        print(f"    train {json.dumps(s['last_train'])}")
+        print(f"    val {json.dumps(s['last_val'])}")
+        print(f"    batch builds {r['builds']} (train {train_steps} + val "
+              f"{val_batches}), K1 launches {r['k1']}, K2 launches "
+              f"{r['k2']}")
+        losses = list(s["last_train"].values()) + list(
+            s["last_val"].values())
+        if not all(np.isfinite(v) for v in losses):
+            raise AssertionError(f"the FCGF loop ({r['name']}) gave a "
+                                 f"non-finite metric")
+        if s["last_train"]["skipped_nonfinite"] != 0.0:
+            raise AssertionError("the FCGF loop skipped a step")
+        if s["train_steps"] != train_steps:
+            raise AssertionError(f"{s['train_steps']} steps in the epoch; "
+                                 f"{LOOP_PAIRS['train']} pairs make "
+                                 f"{train_steps} batches of {b}")
+        if r["builds"] != train_steps + val_batches or r["k1"] != r[
+                "builds"]:
+            raise AssertionError("K1 must launch once per batch build, and "
+                                 "the loop builds each train and val batch "
+                                 "once")
+        if r["k2"] != 4 * (train_steps + val_batches):
+            raise AssertionError("K2 must launch 4 times per train step and "
+                                 "per val batch")
+    if runs[1]["summary"]["steps"] != 2 * train_steps:
+        raise AssertionError("the resumed run did not continue the step "
+                             "count")
+    for item in ("config.json", "metrics.jsonl", "checkpoints",
+                 "checkpoints_best"):
+        if not os.path.exists(os.path.join(out, item)):
+            raise AssertionError(f"the loop wrote no {item}")
+    phases = [r["phase"] for r in loop_records(out)]
+    print(f"  {out}: {sorted(os.listdir(out))}, checkpoints "
+          f"{sorted(os.listdir(os.path.join(out, 'checkpoints')))}, "
+          f"metrics.jsonl records {phases}")
+    if phases != ["train_epoch", "val", "train_epoch", "val"]:
+        raise AssertionError("metrics.jsonl lacks a train_epoch or val "
+                             "record")
+    saved, resumed = made[0]["trainer"].state_dict(), made[1]["first"]
+    same = {k: bitwise_equal(resumed[k], saved[k])
+            for k in ("modules", "accumulation", "step")}
+    same["optimizer state"] = bitwise_equal(resumed["optimizer"]["state"],
+                                            saved["optimizer"]["state"])
+    print(f"  resumed trainer before its first step vs the saved one, bit "
+          f"for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError("the resume did not restore the saved state "
+                             "bit for bit")
+    del made
+
+    ds = make_dataset(cfg.replace(dataset="synthetic"), "train")
+    raws = [collate_raw([ds.get_pair(i) for i in range(k * b, k * b + b)],
+                        cfg, dev) for k in range(2)]
+    acc = FCGFTrainer(cfg.replace(iter_size=2), device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    nn_min.launches = 0
+    accumulation_steps(acc, lambda k: acc.build_batch(raws[k]), "FCGF",
+                       lambda batch: acc.train_step(batch, gen))
+    if nn_min.launches != 8:
+        raise AssertionError("each mini-step launches K2 4 times")
+    del acc
+
+    sym = FCGFTrainer(cfg.replace(symmetric=True,
+                                  generator_model="ResUNetBN2B"),
+                      device=dev, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(2):
+        batch = sym.build_batch(raws[k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {n: float(v) for n, v in sym.train_step(batch, gen).items()}
+        torch.cuda.synchronize()
+        print(f"  symmetric step {k + 1} (ResUNetBN2B decoder, gathered "
+              f"{cfg.model_n_out}-channel {cfg.conv1_kernel_size}^3 conv1): "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms  " + "  ".join(
+                  f"{n} {v:.6g}" for n, v in m.items()))
+        if not all(np.isfinite(v) for v in m.values()) or m[
+                "skipped_nonfinite"]:
+            raise AssertionError("a symmetric step failed")
+    print(f"  symmetric peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return (sum(r["k1"] for r in runs), sum(r["k2"] for r in runs))
+
+
+def yaml_copy(src, dst, overrides, append):
+    """Copy the YAML ``src`` to ``dst`` with the ``key: value`` lines of
+    ``overrides`` replaced (each must occur once) and the lines of
+    ``append`` added to its last section."""
+    with open(src) as f:
+        lines = f.read().splitlines()
+    for key, value in overrides.items():
+        hits = [i for i, line in enumerate(lines)
+                if line.startswith(" ") and line.strip().split(":")[0] == key]
+        if len(hits) != 1:
+            raise AssertionError(f"{src}: {key} occurs {len(hits)} times")
+        indent = lines[hits[0]][:len(lines[hits[0]])
+                                - len(lines[hits[0]].lstrip())]
+        lines[hits[0]] = f"{indent}{key}: {value}"
+    lines += [f"  {key}: {value}" for key, value in append.items()]
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return dst
+
+
+def predator_loop_phase(dev):
+    """Phase 19: ``apr_torch.main.main`` on a copy of
+    configs/train/kitti.yaml (only dataset, chamfer_mode, max_epoch, out_dir
+    and fused_build overridden) over 4 train and 2 val synthetic pairs for
+    one epoch, with the launch counts (0 K1, 4 K2 per train step and per
+    val pair), the checkpoint tags; then main in test mode on a copy of
+    configs/test/kitti.yaml with that run's weights over 2 test pairs;
+    then two full-width Predator steps with iter_size=2.  Returns (K1, K2)
+    launches of the training run."""
+    import shutil
+
+    from apr_torch.config import APRConfig, flatten, read_yaml
+    from apr_torch.data.datasets import make_dataset
+    from apr_torch.main import main as yaml_main
+    from apr_torch.ops.distance import nn_min
+    from apr_torch.ops.searchsorted import searchsorted_left
+    from apr_torch.training.predator import PredatorTrainer
+    from apr_torch.training.predator_loop import pair_to_raw
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    out = os.path.join(root, "predator_loop")
+    test_out = os.path.join(root, "predator_test")
+    for d in (out, test_out):
+        shutil.rmtree(d, ignore_errors=True)
+    train_yaml = yaml_copy(
+        os.path.join(HERE, "configs", "train", "kitti.yaml"),
+        os.path.join(root, "kitti_train.yaml"),
+        {"dataset": "synthetic", "max_epoch": 1, "out_dir": out},
+        {"chamfer_mode": "pallas", "fused_build": "true"})
+    test_yaml = yaml_copy(
+        os.path.join(HERE, "configs", "test", "kitti.yaml"),
+        os.path.join(root, "kitti_test.yaml"),
+        {"dataset": "synthetic", "out_dir": test_out, "weights": out}, {})
+    cfg = APRConfig.from_dict(flatten(read_yaml(train_yaml)))
+    print(f"  python -m apr_torch.main {os.path.relpath(train_yaml, HERE)}: "
+          f"KPFCNN-{cfg.first_feats_dim} {cfg.compute_dtype}, caps "
+          f"{cfg.kp_capacities}, limits {cfg.neighborhood_limits} (pinned), "
+          f"points {cfg.point_capacity}, APC {cfg.apc_capacity}; "
+          f"{PT_LOOP_PAIRS['train']} train / {PT_LOOP_PAIRS['val']} val "
+          f"pairs of 30000 points, 60000 APC points")
+    restore = shrunk_datasets(PT_LOOP_PAIRS)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        searchsorted_left.launches = 0
+        nn_min.launches = 0
+        t0 = time.perf_counter()
+        summary = yaml_main(train_yaml, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = searchsorted_left.launches, nn_min.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        searchsorted_left.launches = 0
+        nn_min.launches = 0
+        t0 = time.perf_counter()
+        test = yaml_main(test_yaml, device=DEVICE)
+        torch.cuda.synchronize()
+        test_wall = time.perf_counter() - t0
+        test_k = (searchsorted_left.launches, nn_min.launches)
+    finally:
+        restore()
+    steps = PT_LOOP_PAIRS["train"]
+    print(f"  train: {wall:.1f} s; epoch steps {summary['train_steps']} in "
+          f"{summary['train_seconds']:.2f} s = "
+          f"{summary['train_steps'] / summary['train_seconds']:.3f} loop "
+          f"steps/s; step timer {summary['step_time'] * 1e3:.1f} ms; peak "
+          f"device memory {peak:.2f} GiB")
+    records = loop_records(out)
+    train_rec = [r for r in records if r["phase"] == "train_epoch"][0]
+    print(f"    train {json.dumps(train_rec)}")
+    print(f"    val {json.dumps(summary['last_val'])}")
+    print(f"    K1 launches {k1}, K2 launches {k2} ({steps} steps, "
+          f"{PT_LOOP_PAIRS['val']} val pairs)")
+    tags = sorted(d for d in os.listdir(out) if d.startswith("checkpoints"))
+    print(f"    {out}: {tags}; best_loss {summary['best_loss']:.6g}, "
+          f"best_recall {summary['best_recall']:.6g}")
+    values = [v for k, v in train_rec.items() if k not in ("phase", "t")]
+    if not all(np.isfinite(v) for v in values + list(
+            summary["last_val"].values())):
+        raise AssertionError("the Predator loop gave a non-finite metric")
+    if train_rec["skipped_nonfinite"] != 0.0 or summary["steps"] != steps:
+        raise AssertionError("the Predator loop skipped a step or ran the "
+                             "wrong number")
+    if k1 != 0:
+        raise AssertionError("the Predator loop launched K1")
+    if k2 != 4 * (steps + PT_LOOP_PAIRS["val"]):
+        raise AssertionError("K2 must launch 4 times per Predator train "
+                             "step and per val pair")
+    if tags != ["checkpoints", "checkpoints_best_loss",
+                "checkpoints_best_recall"]:
+        raise AssertionError("the Predator loop's checkpoint tags are not "
+                             "the reference's")
+    res = np.load(os.path.join(test_out, "results.npz"))
+    print(f"  test mode ({os.path.relpath(test_yaml, HERE)}, weights of the "
+          f"run above): {test_wall:.1f} s, {json.dumps(test)}; results.npz "
+          f"rte {res['rte'].tolist()} rre {res['rre'].tolist()}; K1 / K2 "
+          f"launches {test_k}")
+    if res["rte"].shape != (PT_LOOP_PAIRS["test"],) or not np.isfinite(
+            res["rre"]).all() or test_k != (0, 0):
+        raise AssertionError("test mode wrote no finite results.npz for "
+                             "every pair, or launched a kernel")
+
+    ds = make_dataset(cfg, "train")
+    raws = [pair_to_raw(ds.get_pair(i), cfg) for i in range(2)]
+    acc = PredatorTrainer(cfg.replace(iter_size=2), device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    nn_min.launches = 0
+    accumulation_steps(acc, lambda k: acc.build_batch(raws[k]), "Predator",
+                       lambda batch: acc.train_step(batch, gen))
+    if nn_min.launches != 8:
+        raise AssertionError("each Predator mini-step launches K2 4 times")
+    return k1, k2
+
+
 def main():
     import argparse
 
@@ -1643,16 +2088,31 @@ def main():
     compare_predator_step(dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+    t = phase("18 FCGF training loop through the CLI (python -m "
+              "apr_torch.train), resume, iter_size=2, symmetric")
+    k1_loop, k2_loop = fcgf_loop_phase(dev)
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    t = phase("19 Predator training loop through the YAML entry (python -m "
+              "apr_torch.main configs/train/kitti.yaml), test mode, "
+              "iter_size=2")
+    k1_ploop, k2_ploop = predator_loop_phase(dev)
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
     k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_rows + k2_pt_rows])
     record = {"kernels": [
-        dict(K1, route="cuda", launches=launches + k1_train,
+        dict(K1, route="cuda", launches=launches + k1_train + k1_loop,
              launches_by_path={"eval": launches, "train": k1_train,
-                               "predator_train": 0},
+                               "predator_train": 0, "fcgf_loop": k1_loop,
+                               "predator_loop": k1_ploop},
              max_abs_err=max_err, ms=k1_b2["ms"],
              plain_ms=k1_b2["plain_ms"], bound_ms=k1_b2["bound_ms"],
              bound_by="bytes", library_ms=k1_b2["library_ms"]),
-        dict(K2, route="cuda", launches=k2_train + k2_pt,
-             launches_by_path={"train": k2_train, "predator_train": k2_pt},
+        dict(K2, route="cuda",
+             launches=k2_train + k2_pt + k2_loop + k2_ploop,
+             launches_by_path={"train": k2_train, "predator_train": k2_pt,
+                               "fcgf_loop": k2_loop,
+                               "predator_loop": k2_ploop},
              max_abs_err=k2_err, ms=k2_step["ms"],
              plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
              bound_by="operations", library_ms=k2_step["library_ms"],

@@ -1,5 +1,6 @@
-"""apr_torch imports torch, numpy and the standard library only, and its
-entry points run on the card unless asked for the CPU."""
+"""apr_torch imports torch, numpy and the standard library only (neither
+jax nor apr_tpu, nor yaml, scipy or orbax), and its entry points run on
+the card unless asked for the CPU."""
 
 import json
 import os
@@ -23,7 +24,8 @@ names = ["apr_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "yaml",
+                                    "scipy", "orbax")
              or m.startswith("apr_tpu"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
@@ -41,8 +43,11 @@ def test_every_module_imports_without_jax_or_the_reference():
             "apr_torch.eval.predator_tester", "apr_torch.models.gcn",
             "apr_torch.models.kernel_points", "apr_torch.models.kpconv",
             "apr_torch.models.kpfcnn", "apr_torch.ops.neighbors",
-            "apr_torch.ops.pooling", "apr_torch.training.predator"} <= set(
-                res["modules"])
+            "apr_torch.ops.pooling", "apr_torch.training.predator",
+            "apr_torch.data.datasets", "apr_torch.data.pipeline",
+            "apr_torch.training.checkpoints", "apr_torch.training.loop",
+            "apr_torch.training.predator_loop", "apr_torch.train",
+            "apr_torch.main"} <= set(res["modules"])
     assert len(res["modules"]) == len(list(pkgutil.walk_packages(
         apr_torch.__path__, "apr_torch."))) + 1
 
@@ -53,15 +58,20 @@ def test_tf32_is_off():
 
 
 def _entry_points():
+    import tempfile
+
     from apr_torch.bridge import resunet_from_flax
     from apr_torch.config import APRConfig
+    from apr_torch.data.pipeline import PairLoader, collate_raw
     from apr_torch.eval import FeatureTester, PredatorTester
     from apr_torch.eval.predator_tester import calibrate_neighbors
     from apr_torch.models import load_model
     from apr_torch.training.batching import make_pair_batch
     from apr_torch.training.predator import PredatorTrainer, \
         make_kp_pair_batch
-    from apr_torch.training.trainer import FCGFTrainer
+    from apr_torch.training.loop import run_training
+    from apr_torch.training.predator_loop import run_predator_training
+    from apr_torch.training.trainer import FCGFTrainer, get_trainer
 
     cfg = APRConfig(model="ResUNetBN2", model_n_out=8, conv1_kernel_size=3)
     kp_cfg = APRConfig(first_feats_dim=8, gnn_feats_dim=8, final_feats_dim=4,
@@ -72,6 +82,12 @@ def _entry_points():
     class _NoPairs:
         def __len__(self):
             return 0
+
+    def no_epochs(config):
+        # the loops set up (trainer, loaders, checkpoints) and train for
+        # zero epochs
+        return config.replace(dataset="synthetic", max_epoch=0,
+                              out_dir=tempfile.mkdtemp())
 
     return {
         "PredatorTrainer": lambda **kw: PredatorTrainer(kp_cfg, **kw),
@@ -92,6 +108,15 @@ def _entry_points():
             z3, zm, z3, zm, z3[:, :1], zm[:, :1], z3[:, :1], zm[:, :1],
             np.eye(4, dtype=np.float32)[None], capacities=(4, 2, 2, 2),
             conv1_kernel_size=3, with_correspondences=False, **kw),
+        "get_trainer": lambda **kw: get_trainer(cfg, **kw),
+        "run_training": lambda **kw: run_training(no_epochs(cfg), **kw),
+        "run_predator_training": lambda **kw: run_predator_training(
+            no_epochs(kp_cfg), **kw),
+        "PairLoader": lambda **kw: PairLoader(_NoPairs(), cfg, **kw),
+        "collate_raw": lambda **kw: collate_raw(
+            [dict(points0=z3[0], points1=z3[0], apc0=z3[0], apc1=z3[0],
+                  t_gt=np.eye(4, dtype=np.float32))],
+            cfg.replace(point_capacity=8, apc_capacity=8), **kw),
     }
 
 
@@ -99,7 +124,9 @@ def _entry_points():
                                   "load_model", "resunet_from_flax",
                                   "make_pair_batch", "PredatorTrainer",
                                   "PredatorTester", "make_kp_pair_batch",
-                                  "calibrate_neighbors"])
+                                  "calibrate_neighbors", "get_trainer",
+                                  "run_training", "run_predator_training",
+                                  "PairLoader", "collate_raw"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card, an entry point given no device raises; device='cpu'
     runs."""

@@ -232,8 +232,9 @@ def test_training_entry_points_run(slice_run):
     """The trainer of the eval slice trains: loss_fn, train_step and
     valid_step run on a pair with APC targets (their parity with the
     reference is held in tests/test_torch_predator_train.py), a symmetric
-    trainer builds its KPFCNNDecoder, and gradient accumulation raises
-    naming its queue item."""
+    trainer builds its KPFCNNDecoder, and an iter_size=2 trainer its
+    gradient accumulation (held to the reference in
+    tests/test_torch_predator_iter_size.py)."""
     from dataclasses import replace
 
     from apr_torch.data.synthetic import pad_points
@@ -263,5 +264,6 @@ def test_training_entry_points_run(slice_run):
     assert all(np.isfinite(float(v)) for v in valid.values())
     sym = PredatorTrainer(APRConfig(**FIELDS, symmetric=True), device="cpu")
     assert isinstance(sym.generator, KPFCNNDecoder)
-    with pytest.raises(NotImplementedError, match="B1"):
-        PredatorTrainer(APRConfig(**FIELDS, iter_size=2), device="cpu")
+    accumulating = PredatorTrainer(APRConfig(**FIELDS, iter_size=2),
+                                   device="cpu")
+    assert accumulating.accumulation.every_k == 2

@@ -286,5 +286,10 @@ def test_lr_schedule_optimizers_and_iter_size(run):
                            device="cpu")
     assert type(adam.optimizer) is torch.optim.AdamW
     assert adam.optimizer.defaults["weight_decay"] == cfg.weight_decay
-    with pytest.raises(NotImplementedError, match="B1"):
-        PredatorTrainer(dataclasses.replace(cfg, iter_size=2), device="cpu")
+    # iter_size > 1 accumulates over the optimizer's parameters only: the
+    # frozen kernel points get no accumulator and no decay
+    acc = PredatorTrainer(dataclasses.replace(cfg, iter_size=2),
+                          device="cpu").accumulation
+    assert acc.every_k == 2
+    assert [g.shape for g in acc.grads] == [
+        p.shape for g in trainer.optimizer.param_groups for p in g["params"]]

@@ -320,10 +320,17 @@ def test_bridge_is_strict_and_later_names_raise(run):
     with pytest.raises(RuntimeError):
         load_flax_train_state_(trainer, dict(state.params, generator=extra),
                                state.batch_stats)
-    for fields in ({"symmetric": True}, {"iter_size": 2}):
-        with pytest.raises(NotImplementedError, match="slice 2b"):
-            FCGFTrainer(APRConfig(**{**FIELDS, **fields}), device="cpu")
+    # the slice-2b modes no longer raise: the symmetric ResUNet decoder
+    # loads through the bridge's ResUNet names (its strictness as above)
+    sym = FCGFTrainer(APRConfig(**{**FIELDS, "symmetric": True,
+                                   "generator_model": "ResUNetBN2B"}),
+                      device="cpu")
+    with pytest.raises(RuntimeError):
+        load_flax_train_state_(sym, state.params, state.batch_stats)
+    assert FCGFTrainer(APRConfig(**{**FIELDS, "iter_size": 2}),
+                       device="cpu").accumulation.every_k == 2
     tri = FCGFTrainer(APRConfig(**{**FIELDS, "trainer": "TripletLossTrainer"}),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        tri.loss_fn(run["batch"])
+    loss, metrics = tri.loss_fn(run["batch"], torch.Generator().manual_seed(0))
+    assert np.isfinite(float(loss.detach())) and float(
+        metrics["neg_loss"]) == 0.0
