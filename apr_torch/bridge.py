@@ -10,12 +10,17 @@ or, symmetric, a second ResUNet); a flax PredatorTrainer's
 symmetric KPFCNNDecoder) into an
 :class:`apr_torch.training.predator.PredatorTrainer`.  Names map one to one
 (the GenerativeMLP keeps flax's ``Dense_i`` / ``MaskedBatchNorm_i``),
-except for the ResUNet's norm layers, which flax names by call order:
+except for the sparse U-Nets' norm layers, which flax names by call order:
 
-- in ``ResUNet2``: ``MaskedBatchNorm_0`` .. ``_6`` are norm1, norm2, norm3,
-  norm4, norm4_tr, norm3_tr, norm2_tr;
-- in a block: ``MaskedBatchNorm_j`` (or ``MaskedInstanceNorm_j`` in the IN
-  variants) is ``norm{j + 1}``.
+- in an L-level ``ResUNet2`` or ``SimpleUNet``: ``MaskedBatchNorm_0`` ..
+  ``_{2L-2}`` (``MaskedInstanceNorm_k`` in the IN variants) are norm1 ..
+  normL, normL_tr .. norm2_tr (:func:`norm_names`; L = 4: norm1, norm2,
+  norm3, norm4, norm4_tr, norm3_tr, norm2_tr);
+- in a block: ``MaskedBatchNorm_j`` (or ``MaskedInstanceNorm_j``) is
+  ``norm{j + 1}``.
+
+A tree whose norms already carry those names (as the reference's ``.pth``
+import writes them, ``apr_torch/import_checkpoint.py``) passes unchanged.
 
 Every flax leaf is consumed exactly once: a leaf that maps onto a name
 already taken, a leaf the model lacks and a model entry no leaf fills all
@@ -32,8 +37,13 @@ import torch
 
 from apr_torch.models.resunet import ResUNet2, make_resunet
 
-ENCODER_NORMS = ("norm1", "norm2", "norm3", "norm4",
-                 "norm4_tr", "norm3_tr", "norm2_tr")
+
+def norm_names(levels: int = 4) -> Tuple[str, ...]:
+    """The norms of an L-level sparse U-Net in flax's call order."""
+    return (tuple(f"norm{i}" for i in range(1, levels + 1))
+            + tuple(f"norm{i}_tr" for i in range(levels, 1, -1)))
+
+
 _NORM = re.compile(r"Masked(?:Batch|Instance)Norm_(\d+)")
 
 
@@ -46,11 +56,11 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield prefix + (name,), np.asarray(sub)
 
 
-def _torch_name(path: Tuple[str, ...]) -> str:
+def _torch_name(path: Tuple[str, ...], norms: Tuple[str, ...]) -> str:
     names = list(path)
     top = _NORM.fullmatch(names[0])
     if top:
-        names[0] = ENCODER_NORMS[int(top.group(1))]
+        names[0] = norms[int(top.group(1))]
     elif names[0].startswith("block") and len(names) > 2:
         inner = _NORM.fullmatch(names[1])
         if inner:
@@ -71,10 +81,14 @@ def _state_dict(params: Mapping, batch_stats: Mapping,
     return out
 
 
-def resunet_state_dict(params: Mapping,
-                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict of :class:`ResUNet2` from flax variables (float32)."""
-    return _state_dict(params, batch_stats, _torch_name)
+def resunet_state_dict(params: Mapping, batch_stats: Mapping,
+                       levels: int = 4) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`ResUNet2` (or of an L-level
+    :class:`~apr_torch.models.simpleunet.SimpleUNet`) from flax variables
+    (float32)."""
+    norms = norm_names(levels)
+    return _state_dict(params, batch_stats,
+                       lambda path: _torch_name(path, norms))
 
 
 def mlp_state_dict(params: Mapping,
@@ -86,10 +100,10 @@ def mlp_state_dict(params: Mapping,
 
 def load_flax_resunet_(model: ResUNet2, params: Mapping,
                        batch_stats: Mapping) -> ResUNet2:
-    """Copy flax variables into ``model`` in place (strict: every model
-    entry filled, every leaf used)."""
-    model.load_state_dict(resunet_state_dict(params, batch_stats),
-                          strict=True)
+    """Copy flax variables into ``model`` (a ResUNet2 or a SimpleUNet) in
+    place (strict: every model entry filled, every leaf used)."""
+    model.load_state_dict(
+        resunet_state_dict(params, batch_stats, model.levels), strict=True)
     return model
 
 
@@ -148,10 +162,11 @@ def load_flax_train_state_(trainer, params: Mapping, batch_stats: Mapping):
                              f"trainer wants {sorted(want)}")
     load_flax_resunet_(trainer.encoder, params["encoder"],
                        batch_stats["encoder"])
-    if trainer.generator is not None:
-        to_torch = (resunet_state_dict if trainer.symmetric
-                    else mlp_state_dict)
+    if trainer.symmetric:
+        load_flax_resunet_(trainer.generator, params["generator"],
+                           batch_stats["generator"])
+    elif trainer.generator is not None:
         trainer.generator.load_state_dict(
-            to_torch(params["generator"], batch_stats["generator"]),
+            mlp_state_dict(params["generator"], batch_stats["generator"]),
             strict=True)
     return trainer

@@ -2,11 +2,11 @@
 
 Field names and defaults are the reference's, so a ``config.json`` the
 reference wrote loads with :meth:`APRConfig.from_dict` (fields the port
-does not read yet are dropped).  It holds the fields the two registration
-evals, the two trainers, their loops and the two entry points read; the
-later slices add theirs.  :func:`read_yaml` parses the two-level YAML of
-``configs/*/*.yaml`` with the standard library (the port may not import
-``yaml``).
+does not read are dropped).  It holds the fields the two registration
+evals, the two trainers, their loops, the dataset loaders and the entry
+points read; the later slices add theirs.  :func:`read_yaml` parses the
+two-level YAML of ``configs/*/*.yaml`` with the standard library (the port
+may not import ``yaml``).
 """
 
 from __future__ import annotations
@@ -103,13 +103,29 @@ class APRConfig:
     weight_decay: float = 1e-4
     exp_gamma: float = 0.99
 
-    # --- data ---
-    # "synthetic" (data/datasets.py); the real-dataset names arrive with
-    # their loaders
+    # --- data / APG (data/datasets.py names the loaders) ---
     dataset: str = "PairComplementKittiDataset"
+    kitti_root: str = "./data/kitti"
+    kitti_max_time_diff: int = 3  # baseline KITTIPairDataset dt range
     voxel_size: float = 0.3
     pair_min_dist: float = 5.0
     pair_max_dist: float = 20.0
+    complement_pair_dist: float = 10.0
+    num_complement_one_side: int = 3
+    use_old_pose: bool = False
+    min_scale: float = 0.8
+    max_scale: float = 1.2
+    random_scale: bool = True
+    random_rotation: bool = True
+    mutate_neighbour_percentage: float = 0.0
+    # the Predator flavour of the KITTI augmentation (data/kitti.py::
+    # d3feat_augment) in place of the FCGF rotation and scale
+    d3feat_augmentation: bool = False
+    augment_noise: float = 0.01
+    augment_shift_range: float = 2.0
+    LoKITTI: bool = False
+    LoNUSCENES: bool = False
+    downsample_single: float = 1.0
     positive_pair_search_voxel_size_multiplier: float = 1.5
 
     # --- static capacities (fixed buffer sizes) ---

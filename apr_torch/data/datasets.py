@@ -5,8 +5,10 @@ A dataset yields *pair dicts* (numpy, on the host):
     apc0, apc1:       [M, 3] aggregated point cloud targets (training)
     t_gt:             [4, 4] ground truth mapping frame 0 -> frame 1
 
-:class:`SyntheticPairDataset` backs the tests and the chip smoke run; the
-KITTI, nuScenes, 3DMatch and ModelNet loaders are ROADMAP item C1.
+:class:`SyntheticPairDataset` backs the tests and benchmarks; the KITTI,
+nuScenes, 3DMatch and ModelNet loaders live in ``data/{kitti,nuscenes,
+indoor,modelnet}.py`` and :func:`make_dataset` names them as the reference
+does.
 """
 
 from __future__ import annotations
@@ -18,9 +20,8 @@ import numpy as np
 from apr_torch.config import APRConfig
 from apr_torch.data.synthetic import synthetic_pair
 
-_C1 = ("PairComplementKittiDataset", "KITTIPairDataset", "KITTINMPairDataset",
-       "KITTIRandDistPairDataset", "PairComplementNuscenesDataset",
-       "IndoorDataset", "ThreeDMatchPairDataset", "ModelNetHdf")
+_BASELINES = {"KITTIPairDataset": "time_diff", "KITTINMPairDataset": "nm",
+              "KITTIRandDistPairDataset": "rand_dist"}
 
 
 class PairDataset:
@@ -73,8 +74,26 @@ def make_dataset(config: APRConfig, phase: str) -> PairDataset:
             num_pairs={"train": 64, "val": 16, "test": 16}[phase],
             min_dist=config.pair_min_dist, max_dist=config.pair_max_dist,
             seed=config.seed, phase=phase)
-    if name in _C1:
-        raise NotImplementedError(
-            f"dataset {name!r}: the real-dataset loaders are ROADMAP item C1 "
-            f"and not ported yet; use dataset='synthetic'")
+    if name == "PairComplementKittiDataset":
+        from apr_torch.data.kitti import KittiComplementDataset
+
+        return KittiComplementDataset(config, phase)
+    if name in _BASELINES:
+        # the baseline pairings (reference data_loaders.py:284-700), not
+        # the APG complement walk
+        from apr_torch.data.kitti import KittiBaselinePairDataset
+
+        return KittiBaselinePairDataset(config, phase, _BASELINES[name])
+    if name == "PairComplementNuscenesDataset":
+        from apr_torch.data.nuscenes import NuscenesComplementDataset
+
+        return NuscenesComplementDataset(config, phase)
+    if name in ("IndoorDataset", "ThreeDMatchPairDataset"):
+        from apr_torch.data.indoor import IndoorDataset
+
+        return IndoorDataset(config, phase)
+    if name == "ModelNetHdf":
+        from apr_torch.data.modelnet import ModelNetHdf
+
+        return ModelNetHdf(config, phase)
     raise ValueError(f"unknown dataset: {name}")

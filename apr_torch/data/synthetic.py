@@ -7,9 +7,17 @@ denser "aggregated" cloud playing the APC role.
 
 Copy of ``apr_tpu/data/synthetic.py``: the same seeds give the same clouds
 (tests/test_torch_slice.py holds the two against each other).
+:func:`write_kitti_tree` renders a KITTI-format tree of
+:func:`synthetic_lidar_frame` scans, for the data loaders' tests and the chip smoke run (no dataset ships with the
+repository).
 """
 
 from __future__ import annotations
+
+import os
+import shutil
+from concurrent.futures import ThreadPoolExecutor
+from typing import Tuple
 
 import numpy as np
 
@@ -50,6 +58,31 @@ def _scene_surface_points(rng: np.random.Generator, n: int, extent: float):
         boxes.append(pts)
     out.append(np.concatenate(boxes))
     pts = np.concatenate(out)[:n]
+    return pts.astype(np.float32)
+
+
+def synthetic_lidar_frame(
+    seed: int = 0,
+    n_points: int = 30000,
+    extent: float = 60.0,
+    sensor_xyz: Tuple[float, float, float] = (0.0, 0.0, 1.8),
+    max_range: float = 80.0,
+) -> np.ndarray:
+    """One 'scan': scene surface points visible within range, sensor-centered."""
+    rng = np.random.default_rng(seed)
+    pts = _scene_surface_points(rng, int(n_points * 4), extent)
+    rel = pts - np.asarray(sensor_xyz, np.float32)
+    r = np.linalg.norm(rel, axis=1)
+    keep = r < max_range
+    pts = rel[keep]
+    # range-dependent thinning imitating ring density falloff
+    p_keep = np.clip(12.0 / np.maximum(np.linalg.norm(pts[:, :2], axis=1), 2.0), 0.05, 1.0)
+    keep2 = rng.uniform(size=len(pts)) < p_keep
+    pts = pts[keep2]
+    # measurement noise
+    pts = pts + rng.normal(0, 0.01, pts.shape).astype(np.float32)
+    if len(pts) > n_points:
+        pts = pts[rng.choice(len(pts), n_points, replace=False)]
     return pts.astype(np.float32)
 
 
@@ -287,3 +320,82 @@ def pad_points(points: np.ndarray, capacity: int):
     out[:n] = points[:n]
     mask[:n] = True
     return out, mask
+
+
+# The trees' fixed settings: the LiDAR's range, and calib.txt's rigid,
+# non-identity velodyne -> camera ``Tr`` (zyx Euler angles, translation).
+TREE_MAX_RANGE = 80.0
+TREE_CALIB_EULER = (0.03, -1.55, 0.02)
+TREE_CALIB_T = (-0.01, -0.07, -0.27)
+
+
+def write_kitti_sequence(seq_dir: str, n_frames: int, n_points: int = 120000,
+                         step: float = 5.0, radius: float = 50.0,
+                         seed: int = 0) -> np.ndarray:
+    """Write one KITTI odometry sequence into ``seq_dir``: ``velodyne/
+    %06d.bin`` (x, y, z, reflectance as float32), ``calib.txt`` (``Tr``
+    of ``TREE_CALIB_EULER`` and ``TREE_CALIB_T``) and ``poses.txt``
+    (camera poses, ``Tr @ P @ Tr^-1`` of each LiDAR pose P).
+
+    Frame t is a :func:`synthetic_lidar_frame` of ``seed``'s scene (ONE
+    static scene: the seed fixes it) from a sensor ``step`` metres further
+    along a circle of ``radius`` metres, asked for twice ``n_points``
+    points (range thinning keeps about 0.6 of them), cut to ``n_points``
+    by ``default_rng([seed, t])`` and turned into the body frame of a
+    sensor heading along the circle.  Any two frames within range share
+    geometry.  Threads render the frames.  Returns the LiDAR poses
+    [n_frames, 4, 4]."""
+    from apr_torch.geometry.rotation import euler_matrix
+
+    tr = np.eye(4)
+    tr[:3, :3] = euler_matrix("zyx", TREE_CALIB_EULER)
+    tr[:3, 3] = TREE_CALIB_T
+    os.makedirs(os.path.join(seq_dir, "velodyne"), exist_ok=True)
+
+    def frame(t):
+        ang = t * step / radius
+        pos = (radius * np.cos(ang), radius * np.sin(ang),
+               1.8 + 0.05 * np.sin(t / 5.0))
+        pts = synthetic_lidar_frame(seed, 2 * n_points, radius + 40.0, pos,
+                                    TREE_MAX_RANGE)
+        rng = np.random.default_rng([seed, t])
+        if len(pts) > n_points:
+            pts = pts[rng.choice(len(pts), n_points, replace=False)]
+        yaw = ang + np.pi / 2
+        c, s = np.cos(yaw), np.sin(yaw)
+        rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        xyzr = np.concatenate(
+            [pts @ rot, rng.uniform(0, 1, (len(pts), 1)).astype(np.float32)],
+            1)
+        xyzr.tofile(os.path.join(seq_dir, "velodyne", "%06d.bin" % t))
+        pose = np.eye(4)
+        pose[:3, :3] = rot
+        pose[:3, 3] = np.asarray(pos, np.float32)
+        return pose
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        poses = np.asarray(list(pool.map(frame, range(n_frames))))
+    cam = [(tr @ p @ np.linalg.inv(tr))[:3].reshape(-1) for p in poses]
+    with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+        f.write("Tr: " + " ".join("%.12e" % v for v in tr[:3].reshape(-1))
+                + "\n")
+    with open(os.path.join(seq_dir, "poses.txt"), "w") as f:
+        f.writelines(" ".join("%.12e" % v for v in p) + "\n" for p in cam)
+    return poses
+
+
+def write_kitti_tree(root: str, frames, n_points: int = 120000,
+                     step: float = 5.0, radius: float = 50.0):
+    """A KITTI-format tree under ``root``: ``sequences/NN/`` for each
+    ``{drive: n_frames}`` of ``frames`` (:func:`write_kitti_sequence`, one
+    scene each, seeded with the drive) and the odometry layout
+    ``poses/NN.txt`` (the same camera poses).  Returns ``{drive: LiDAR poses}``."""
+    out = {}
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    for drive, n in frames.items():
+        seq = os.path.join(root, "sequences", "%02d" % drive)
+        out[drive] = write_kitti_sequence(seq, n, n_points, step, radius,
+                                          seed=drive)
+        shutil.copyfile(os.path.join(seq, "poses.txt"),
+                        os.path.join(root, "poses", "%02d.txt" % drive))
+    return out

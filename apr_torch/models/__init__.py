@@ -1,9 +1,8 @@
 """Model registry: reference names -> module factories.
 
-Mirrors ``apr_tpu.models.load_model`` for the ResUNet names (the registry
-of the reference, FCGF_APR/model/__init__.py); the generative MLPs come
-from :func:`apr_torch.models.mlp.make_generative_mlp`.  SimpleNet arrives
-with a later slice.
+Mirrors ``apr_tpu.models.load_model`` (the registry of the reference,
+FCGF_APR/model/__init__.py): the ResUNet and SimpleNet names are sparse
+encoders, the GenerativeMLP names the generative heads.
 """
 
 from __future__ import annotations
@@ -12,6 +11,8 @@ from apr_torch.models.mlp import MLP_VARIANTS, GenerativeMLP, \
     make_generative_mlp
 from apr_torch.models.resunet import ResUNet2, make_resunet
 from apr_torch.models.resunet import _VARIANTS as RESUNET_VARIANTS
+from apr_torch.models.simpleunet import SimpleUNet, make_simplenet, \
+    simplenet_names
 from apr_torch.models.sparse import SparseLevel, SparsePyramid
 
 _RESUNET_NAMES = sorted(RESUNET_VARIANTS) + [
@@ -25,10 +26,18 @@ def load_model(name: str):
     keyword arguments."""
     if name in _RESUNET_NAMES:
         return lambda **kw: make_resunet(name, **kw)
-    raise ValueError(f"unknown model name: {name} (this slice ports "
-                     f"{_RESUNET_NAMES})")
+    if name in simplenet_names():
+        return lambda **kw: make_simplenet(name, **kw)
+    if name in MLP_VARIANTS:
+        return lambda **kw: make_generative_mlp(name, **kw)
+    raise ValueError(f"unknown model name: {name}")
 
 
-__all__ = ["GenerativeMLP", "MLP_VARIANTS", "ResUNet2", "SparseLevel",
-           "SparsePyramid", "load_model", "make_generative_mlp",
-           "make_resunet"]
+def model_names():
+    return _RESUNET_NAMES + simplenet_names() + sorted(MLP_VARIANTS)
+
+
+__all__ = ["GenerativeMLP", "MLP_VARIANTS", "ResUNet2", "SimpleUNet",
+           "SparseLevel", "SparsePyramid", "load_model",
+           "make_generative_mlp", "make_resunet", "make_simplenet",
+           "model_names"]

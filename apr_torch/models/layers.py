@@ -100,3 +100,14 @@ class MaskedInstanceNorm(nn.Module):
         if self.scale is not None:
             y = y * self.scale + self.bias
         return torch.where(mask[..., None], y, 0.0)
+
+
+def get_norm(norm_type: str, channels: int, momentum: float = 0.1
+             ) -> nn.Module:
+    """The reference's get_norm (FCGF_APR/model/common.py:4-10): "BN" a
+    :class:`MaskedBatchNorm`, "IN" a :class:`MaskedInstanceNorm`."""
+    if norm_type == "BN":
+        return MaskedBatchNorm(channels, momentum=momentum)
+    if norm_type == "IN":
+        return MaskedInstanceNorm(channels)
+    raise ValueError(f"Type {norm_type}, not defined")

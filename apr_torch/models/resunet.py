@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from apr_torch.device import resolve_device
-from apr_torch.models.layers import MaskedBatchNorm, MaskedInstanceNorm
+from apr_torch.models.layers import get_norm
 from apr_torch.models.sparse import SparsePyramid, fold_table, \
     sparse_conv_adjoint
 
@@ -99,14 +99,6 @@ class Dense(nn.Module):
         return out if self.bias is None else out + self.bias
 
 
-def _norm(norm_type: str, channels: int, momentum: float) -> nn.Module:
-    if norm_type == "BN":
-        return MaskedBatchNorm(channels, momentum=momentum)
-    if norm_type == "IN":
-        return MaskedInstanceNorm(channels)
-    raise ValueError(norm_type)
-
-
 class BasicBlock(nn.Module):
     """Residual block: two 3^3 sparse convs + skip."""
 
@@ -116,10 +108,10 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = SparseConv(channels, channels, 27, use_bias=True,
                                 compute_dtype=compute_dtype)
-        self.norm1 = _norm(norm_type, channels, bn_momentum)
+        self.norm1 = get_norm(norm_type, channels, bn_momentum)
         self.conv2 = SparseConv(channels, channels, 27,
                                 compute_dtype=compute_dtype)
-        self.norm2 = _norm(norm_type, channels, bn_momentum)
+        self.norm2 = get_norm(norm_type, channels, bn_momentum)
 
     def forward(self, feats, table, mask, stats_groups: int = 1):
         out = torch.relu(self.norm1(self.conv1(feats, table, mask), mask,
@@ -137,6 +129,8 @@ class ResUNet2(nn.Module):
     batch statistics, per interleaved group of ``stats_groups`` clouds.
     """
 
+    levels = 4
+
     def __init__(self, in_channels: int = 1, out_channels: int = 32,
                  channels: Sequence[int] = (32, 64, 128, 256),
                  tr_channels: Sequence[int] = (32, 64, 64, 128),
@@ -151,7 +145,7 @@ class ResUNet2(nn.Module):
         self.conv1 = SparseConv(in_channels, ch[0], conv1_kernel_size ** 3,
                                 compute_dtype=compute_dtype,
                                 ones_input=ones_input)
-        self.norm1 = _norm(norm_type, ch[0], bn_momentum)
+        self.norm1 = get_norm(norm_type, ch[0], bn_momentum)
         self.block1 = BasicBlock(ch[0], block_norm_type, bn_momentum,
                                  compute_dtype)
         for lvl in range(1, 4):
@@ -159,7 +153,7 @@ class ResUNet2(nn.Module):
                     SparseConv(ch[lvl - 1], ch[lvl], 27,
                                compute_dtype=compute_dtype))
             setattr(self, f"norm{lvl + 1}",
-                    _norm(norm_type, ch[lvl], bn_momentum))
+                    get_norm(norm_type, ch[lvl], bn_momentum))
             setattr(self, f"block{lvl + 1}",
                     BasicBlock(ch[lvl], block_norm_type, bn_momentum,
                                compute_dtype))
@@ -169,7 +163,7 @@ class ResUNet2(nn.Module):
                     SparseConv(in_ch, tr[lvl], 27,
                                compute_dtype=compute_dtype))
             setattr(self, f"norm{lvl + 1}_tr",
-                    _norm(norm_type, tr[lvl], bn_momentum))
+                    get_norm(norm_type, tr[lvl], bn_momentum))
             setattr(self, f"block{lvl + 1}_tr",
                     BasicBlock(tr[lvl], block_norm_type, bn_momentum,
                                compute_dtype))

@@ -79,7 +79,17 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    over 4 train and 2 val pairs: 0 K1 and 4 K2 launches per train step and
    val pair, finite metrics, the checkpoint tags; test mode on a copy of
    configs/test/kitti.yaml with that run's weights (results.npz); two
-   full-width iter_size=2 Predator mini-steps.
+   full-width iter_size=2 Predator mini-steps;
+20. the real-data path on a KITTI-format tree written into a temporary
+   directory (frames of 120000 points): the FCGF training loop through the
+   CLI on PairComplementKittiDataset at phase 10's width, then
+   ``python -m apr_torch.scripts.test_apr`` (LoKITTI) and ``test_fcgf`` on
+   that run (one K1 launch per batch build, 4 K2 per train step and val
+   batch, results.npz); the Predator loop on a copy of
+   configs/train/kitti.yaml (only kitti_root, out_dir, max_epoch,
+   chamfer_mode and fused_build overridden; 0 K1, 4 K2 per step and val
+   pair) and test mode on configs/test/kitti.yaml; a reference-layout
+   ResUNetFatBN-128 .pth state_dict imported, its encoder card vs CPU.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1376,6 +1386,36 @@ def loop_records(out):
         return [json.loads(line) for line in f]
 
 
+def epoch_means(record):
+    """The metrics of a metrics.jsonl train_epoch record."""
+    return {k: v for k, v in record.items() if k not in ("phase", "t")}
+
+
+def check_loop_run(r, steps, val_batches, k1_per_build, what):
+    """The launch counts and metrics of one training loop run ``r``: no
+    skipped step, finite metrics, ``steps`` steps, one batch build per
+    train step and val batch with ``k1_per_build`` K1 launches each, 4 K2
+    launches per train step and per val batch."""
+    s = r["summary"]
+    values = list(s["last_train"].values()) + list(s["last_val"].values())
+    if not all(np.isfinite(v) for v in values):
+        raise AssertionError(f"{what} gave a non-finite metric")
+    if s["last_train"]["skipped_nonfinite"] != 0.0:
+        raise AssertionError(f"{what} skipped a step")
+    if s["train_steps"] != steps or steps < 2:
+        raise AssertionError(f"{what}: {s['train_steps']} steps in the "
+                             f"epoch, {steps} wanted (2 at least)")
+    if r.get("builds") is not None and r["builds"] != steps + val_batches:
+        raise AssertionError(f"{what} must build each train and val batch "
+                             f"once")
+    if r["k1"] != k1_per_build * (steps + val_batches):
+        raise AssertionError(f"{what}: K1 must launch {k1_per_build} times "
+                             f"per batch build")
+    if r["k2"] != 4 * (steps + val_batches):
+        raise AssertionError(f"{what}: K2 must launch 4 times per train step "
+                             f"and per val batch")
+
+
 def accumulation_steps(trainer, batch_of, what, step=None):
     """Two full-width mini-steps of an ``iter_size=2`` trainer: the
     parameters must stay bit for bit after the first and move after the
@@ -1475,25 +1515,8 @@ def fcgf_loop_phase(dev):
         print(f"    batch builds {r['builds']} (train {train_steps} + val "
               f"{val_batches}), K1 launches {r['k1']}, K2 launches "
               f"{r['k2']}")
-        losses = list(s["last_train"].values()) + list(
-            s["last_val"].values())
-        if not all(np.isfinite(v) for v in losses):
-            raise AssertionError(f"the FCGF loop ({r['name']}) gave a "
-                                 f"non-finite metric")
-        if s["last_train"]["skipped_nonfinite"] != 0.0:
-            raise AssertionError("the FCGF loop skipped a step")
-        if s["train_steps"] != train_steps:
-            raise AssertionError(f"{s['train_steps']} steps in the epoch; "
-                                 f"{LOOP_PAIRS['train']} pairs make "
-                                 f"{train_steps} batches of {b}")
-        if r["builds"] != train_steps + val_batches or r["k1"] != r[
-                "builds"]:
-            raise AssertionError("K1 must launch once per batch build, and "
-                                 "the loop builds each train and val batch "
-                                 "once")
-        if r["k2"] != 4 * (train_steps + val_batches):
-            raise AssertionError("K2 must launch 4 times per train step and "
-                                 "per val batch")
+        check_loop_run(r, train_steps, val_batches, 1,
+                       f"the FCGF loop ({r['name']})")
     if runs[1]["summary"]["steps"] != 2 * train_steps:
         raise AssertionError("the resumed run did not continue the step "
                              "count")
@@ -1651,18 +1674,9 @@ def predator_loop_phase(dev):
     tags = sorted(d for d in os.listdir(out) if d.startswith("checkpoints"))
     print(f"    {out}: {tags}; best_loss {summary['best_loss']:.6g}, "
           f"best_recall {summary['best_recall']:.6g}")
-    values = [v for k, v in train_rec.items() if k not in ("phase", "t")]
-    if not all(np.isfinite(v) for v in values + list(
-            summary["last_val"].values())):
-        raise AssertionError("the Predator loop gave a non-finite metric")
-    if train_rec["skipped_nonfinite"] != 0.0 or summary["steps"] != steps:
-        raise AssertionError("the Predator loop skipped a step or ran the "
-                             "wrong number")
-    if k1 != 0:
-        raise AssertionError("the Predator loop launched K1")
-    if k2 != 4 * (steps + PT_LOOP_PAIRS["val"]):
-        raise AssertionError("K2 must launch 4 times per Predator train "
-                             "step and per val pair")
+    check_loop_run(dict(summary=dict(summary, last_train=epoch_means(
+        train_rec)), k1=k1, k2=k2), steps, PT_LOOP_PAIRS["val"], 0,
+        "the Predator loop")
     if tags != ["checkpoints", "checkpoints_best_loss",
                 "checkpoints_best_recall"]:
         raise AssertionError("the Predator loop's checkpoint tags are not "
@@ -1687,6 +1701,303 @@ def predator_loop_phase(dev):
     if nn_min.launches != 8:
         raise AssertionError("each Predator mini-step launches K2 4 times")
     return k1, k2
+
+
+# the real-data path (phase 20): a KITTI-format tree written into a
+# temporary directory (no dataset ships with the repository), frames of at
+# most 120000 points, 5 m apart on a 50 m circle through one static scene per
+# sequence: enough for FCGF's complement window (3 x 10 m a side) and
+# kitti.yaml's (5 x 6 m); the walks give 8 train / 4 val / 4 test FCGF pairs
+# and 5 train / 2 val kitti.yaml pairs.  Cut: frames and pairs (KITTI's
+# sequences hold thousands of frames about 1 m apart), never a frame's width
+TREE_FRAMES = {0: 72, 6: 40, 8: 40}
+TREE_POINTS = 120000
+TREE_STEP, TREE_RADIUS = 5.0, 50.0
+# the tree's own LoKITTI list: test pairs 9 frames (43.5 m) apart
+TREE_LOKITTI = [[8, 10, 19], [8, 12, 21], [8, 14, 23], [8, 16, 25]]
+EVAL_PAIRS = 4
+# phase 18's argv on the tree's KITTI pairs
+REAL_ARGV = ["PairComplementKittiDataset" if a == "synthetic" else a
+             for a in LOOP_ARGV]
+
+
+def tree_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def loader_ms(cfg, split, n):
+    """Host milliseconds per pair of the config's dataset (``get_pair`` in
+    index order, as the loader's thread calls it) over its first ``n``
+    pairs, and the split's pair count."""
+    from apr_torch.data.datasets import make_dataset
+
+    ds = make_dataset(cfg, split)
+    n = min(n, len(ds))
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds.get_pair(i)
+    return (time.perf_counter() - t0) * 1e3 / max(n, 1), len(ds)
+
+
+def reference_resunet_pth(channels, tr, k1, n_out, seed=0):
+    """A ResUNet2 state_dict in the reference's .pth layout (ME sparse
+    kernels [K, in, out], norms wrapping a BatchNorm as ``.bn``)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32))
+
+    def kernel(k, ci, co):
+        bound = np.sqrt(3.0 / (k * ci))
+        return t(rng.uniform(-bound, bound, (k, ci, co)))
+
+    def norm(name, c):
+        for key, lo, hi in (("weight", 0.6, 1.4), ("bias", -0.2, 0.2),
+                            ("running_mean", -0.2, 0.2),
+                            ("running_var", 0.5, 1.5)):
+            sd[f"{name}.bn.{key}"] = t(rng.uniform(lo, hi, c))
+
+    def block(name, c):
+        sd[f"{name}.conv1.kernel"] = kernel(27, c, c)
+        sd[f"{name}.conv1.bias"] = t(rng.uniform(-0.1, 0.1, c))
+        sd[f"{name}.conv2.kernel"] = kernel(27, c, c)
+        norm(f"{name}.norm1", c)
+        norm(f"{name}.norm2", c)
+
+    prev = 1
+    for i, c in enumerate(channels, 1):
+        sd[f"conv{i}.kernel"] = kernel(k1 if i == 1 else 27, prev, c)
+        norm(f"norm{i}", c)
+        block(f"block{i}", c)
+        prev = c
+    ins = {4: channels[3], 3: channels[2] + tr[3], 2: channels[1] + tr[2]}
+    for i in (4, 3, 2):
+        sd[f"conv{i}_tr.kernel"] = kernel(27, ins[i], tr[i - 1])
+        norm(f"norm{i}_tr", tr[i - 1])
+        block(f"block{i}_tr", tr[i - 1])
+    sd["conv1_tr.kernel"] = kernel(1, channels[0] + tr[1], tr[0])[0]
+    sd["final.kernel"] = kernel(1, tr[0], n_out)
+    sd["final.bias"] = t(rng.uniform(-0.1, 0.1, n_out))
+    return sd
+
+
+def real_data_phase(dev):
+    """Phase 20: the real-data path on a KITTI-format tree written here.
+    (a) the tree; (b) ``python -m apr_torch.train --dataset
+    PairComplementKittiDataset`` at phase 10's width (fused build, K2
+    Chamfer) for one epoch, then ``apr_torch.scripts.test_apr`` (LoKITTI)
+    and ``apr_torch.scripts.test_fcgf`` on that run; (c) ``apr_torch.main``
+    on a copy of configs/train/kitti.yaml (only kitti_root, out_dir,
+    max_epoch, chamfer_mode and fused_build overridden; d3feat
+    augmentation), then test mode on configs/test/kitti.yaml (LoKITTI);
+    (d) a reference-layout ResUNetFatBN-128 state_dict imported and its
+    encoder run on the card and the CPU.  Returns {path: (K1, K2)}."""
+    import shutil
+    import tempfile
+
+    import apr_torch.data.pipeline as pipeline_mod
+    import apr_torch.eval.tester as tester_mod
+    import apr_torch.training.trainer as trainer_mod
+    from apr_torch.config import APRConfig, flatten, read_yaml
+    from apr_torch.data.datasets import make_dataset
+    from apr_torch.data.synthetic import write_kitti_tree
+    from apr_torch.import_checkpoint import load_reference_checkpoint_
+    from apr_torch.main import main as yaml_main
+    from apr_torch.models.sparse import SparseLevel, \
+        build_pyramid_from_level
+    from apr_torch.ops.distance import nn_min
+    from apr_torch.ops.searchsorted import searchsorted_left
+    from apr_torch.ops.voxelize import voxelize_lean
+    from apr_torch.scripts import test_apr, test_fcgf
+    from apr_torch.train import config_from_args, main as train_main
+    from apr_torch.training.trainer import get_trainer
+
+    def counted(fn, modules=()):
+        counts, undo = counted_builds(list(modules))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        searchsorted_left.launches = 0
+        nn_min.launches = 0
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        return dict(summary=out, wall=time.perf_counter() - t0,
+                    k1=searchsorted_left.launches, k2=nn_min.launches,
+                    builds=counts["builds"] if modules else None,
+                    peak=torch.cuda.max_memory_allocated() / 2**30)
+
+    root = os.path.join(HERE, "build", "chip_smoke")
+    tmp = tempfile.mkdtemp(prefix="apr_torch_kitti_")
+    launches = {}
+    try:
+        # (a) the tree
+        tree = os.path.join(tmp, "kitti")
+        t0 = time.perf_counter()
+        write_kitti_tree(tree, TREE_FRAMES, n_points=TREE_POINTS,
+                         step=TREE_STEP, radius=TREE_RADIUS)
+        np.save(os.path.join(tree, "file_LoKITTI_50.npy"),
+                np.array(TREE_LOKITTI))
+        secs = time.perf_counter() - t0
+        n_frames = sum(TREE_FRAMES.values())
+        sizes = [os.path.getsize(os.path.join(d, f)) // 16
+                 for d, _, files in os.walk(tree) for f in files
+                 if f.endswith(".bin")]
+        print(f"  (a) tree: sequences {sorted(TREE_FRAMES)} with "
+              f"{list(TREE_FRAMES.values())} frames of {min(sizes)}-"
+              f"{max(sizes)} points (mean {np.mean(sizes):.0f}, at most "
+              f"{TREE_POINTS}; {TREE_STEP:g} m apart), "
+              f"{tree_bytes(tree) / 2**20:.1f} MiB, "
+              f"written in {secs:.1f} s ({secs / n_frames * 1e3:.1f} ms a "
+              f"frame)")
+
+        # (b) FCGF: the training loop, then both eval scripts on its run
+        run = os.path.join(root, "real_fcgf")
+        shutil.rmtree(run, ignore_errors=True)
+        argv = REAL_ARGV + ["--kitti_root", tree, "--out_dir", run,
+                            "--device", DEVICE]
+        cfg = config_from_args(argv)
+        ms_pair, n_train = loader_ms(cfg, "train", cfg.batch_size)
+        n_val = len(make_dataset(cfg, "val"))
+        steps = n_train // cfg.batch_size
+        print(f"  (b) python -m apr_torch.train {' '.join(REAL_ARGV)} "
+              f"--kitti_root TREE: {n_train} train / {n_val} val pairs; "
+              f"the loader takes {ms_pair:.1f} ms of host time a pair "
+              f"({2 + 4 * cfg.num_complement_one_side} frames)")
+        r = counted(lambda: train_main(argv), (trainer_mod, pipeline_mod))
+        s = r["summary"]
+        print(f"    {r['wall']:.1f} s; epoch steps {s['train_steps']} in "
+              f"{s['train_seconds']:.2f} s = "
+              f"{s['train_steps'] / s['train_seconds']:.3f} loop steps/s; "
+              f"timers: data {s['data_time'] * 1e3:.1f} ms, step "
+              f"{s['step_time'] * 1e3:.1f} ms; peak device memory "
+              f"{r['peak']:.2f} GiB")
+        print(f"    train {json.dumps(s['last_train'])}")
+        print(f"    val {json.dumps(s['last_val'])}")
+        print(f"    batch builds {r['builds']}, K1 launches {r['k1']}, K2 "
+              f"launches {r['k2']}")
+        check_loop_run(r, steps, n_val, 1, "the FCGF loop on KITTI pairs")
+        if not os.path.isdir(os.path.join(run, "checkpoints_best")):
+            raise AssertionError("the FCGF loop saved no best checkpoint")
+        k1, k2 = r["k1"], r["k2"]
+        for name, entry, extra in (
+                ("test_apr", test_apr.main, ["--LoKITTI", "true"]),
+                ("test_fcgf", test_fcgf.main, [])):
+            results = os.path.join(run, "results.npz")
+            if os.path.exists(results):
+                os.remove(results)
+            r = counted(lambda: entry(
+                ["--save_dir", run, "--num_pairs", str(EVAL_PAIRS),
+                 "--device", DEVICE] + extra), (tester_mod,))
+            s, res = r["summary"], np.load(results)
+            print(f"    python -m apr_torch.scripts.{name} --save_dir RUN "
+                  f"--num_pairs {EVAL_PAIRS} {' '.join(extra)}: "
+                  f"{r['wall']:.1f} s, {s['pairs_per_sec']:.3f} pairs/s "
+                  f"(pairs 2-{EVAL_PAIRS}), recall {s['recall']:.3f} (weights "
+                  f"{steps} steps old: not gated), RTE "
+                  f"{['%.2f' % x for x in res['rte']]}; builds "
+                  f"{r['builds']}, K1 {r['k1']}, K2 {r['k2']}; peak "
+                  f"{r['peak']:.2f} GiB")
+            if (res["rte"].shape != (EVAL_PAIRS,)
+                    or not np.isfinite(res["rre"]).all()):
+                raise AssertionError(f"{name} wrote no finite results.npz "
+                                     f"for each pair")
+            if r["builds"] != EVAL_PAIRS or r["k1"] != EVAL_PAIRS or r[
+                    "k2"] != 0:
+                raise AssertionError(f"{name}: one batch build and one K1 "
+                                     f"launch per pair, no K2")
+            k1 += r["k1"]
+        launches["real_fcgf"] = (k1, k2)
+
+        # (c) Predator: kitti.yaml as shipped but for the loop cuts
+        out = os.path.join(root, "real_predator")
+        test_out = os.path.join(root, "real_predator_test")
+        for d in (out, test_out):
+            shutil.rmtree(d, ignore_errors=True)
+        train_yaml = yaml_copy(
+            os.path.join(HERE, "configs", "train", "kitti.yaml"),
+            os.path.join(root, "kitti_real_train.yaml"),
+            {"kitti_root": tree, "out_dir": out, "max_epoch": 1},
+            {"chamfer_mode": "pallas", "fused_build": "true"})
+        test_yaml = yaml_copy(
+            os.path.join(HERE, "configs", "test", "kitti.yaml"),
+            os.path.join(root, "kitti_real_test.yaml"),
+            {"kitti_root": tree, "out_dir": test_out, "weights": out}, {})
+        pcfg = APRConfig.from_dict(flatten(read_yaml(train_yaml)))
+        ms_pair, n_train = loader_ms(pcfg, "train", 2)
+        n_val = len(make_dataset(pcfg, "val"))
+        print(f"  (c) python -m apr_torch.main "
+              f"{os.path.relpath(train_yaml, HERE)} ({pcfg.dataset}, "
+              f"d3feat_augmentation {pcfg.d3feat_augmentation}): {n_train} "
+              f"train / {n_val} val pairs; the loader takes {ms_pair:.1f} "
+              f"ms of host time a pair "
+              f"({2 + 4 * pcfg.num_complement_one_side} frames)")
+        r = counted(lambda: yaml_main(train_yaml, device=DEVICE))
+        s = r["summary"]
+        print(f"    {r['wall']:.1f} s; epoch steps {s['train_steps']} in "
+              f"{s['train_seconds']:.2f} s = "
+              f"{s['train_steps'] / s['train_seconds']:.3f} loop steps/s; "
+              f"step timer {s['step_time'] * 1e3:.1f} ms; peak device "
+              f"memory {r['peak']:.2f} GiB")
+        train_rec = [x for x in loop_records(out)
+                     if x["phase"] == "train_epoch"][0]
+        print(f"    train {json.dumps(train_rec)}")
+        print(f"    val {json.dumps(s['last_val'])}")
+        print(f"    K1 launches {r['k1']}, K2 launches {r['k2']}")
+        r["summary"] = dict(s, last_train=epoch_means(train_rec))
+        check_loop_run(r, n_train, n_val, 0, "the Predator loop on KITTI "
+                       "pairs")
+        k2 = r["k2"]
+        r = counted(lambda: yaml_main(test_yaml, device=DEVICE))
+        res = np.load(os.path.join(test_out, "results.npz"))
+        print(f"    test mode ({os.path.relpath(test_yaml, HERE)}, LoKITTI, "
+              f"the run's weights): {r['wall']:.1f} s, "
+              f"{json.dumps(r['summary'])}; K1 / K2 {r['k1']} / {r['k2']}")
+        if res["rte"].shape != (len(TREE_LOKITTI),) or not np.isfinite(
+                res["rre"]).all() or (r["k1"], r["k2"]) != (0, 0):
+            raise AssertionError("Predator test mode wrote no finite "
+                                 "results.npz for each pair, or launched a "
+                                 "kernel")
+        launches["real_predator"] = (0, k2)
+
+        # (d) a reference .pth state_dict at ResUNetFatBN-128 width
+        icfg = APRConfig(model="ResUNetFatBN", model_n_out=128,
+                         conv1_kernel_size=5, compute_dtype="float32")
+        sd = reference_resunet_pth((32, 64, 128, 256), (128, 128, 128, 256),
+                                   125, 128)
+        pair = make_dataset(cfg.replace(LoKITTI=True), "test").get_pair(0)
+        pts = torch.as_tensor(pair["points0"][None], device=dev)
+        coords, keys, vmask, _ = voxelize_lean(pts, icfg.voxel_size,
+                                               icfg.capacities[0])
+        pyr = build_pyramid_from_level(SparseLevel(coords, keys, vmask),
+                                       icfg.capacities, 5)
+        feats = vmask[..., None].float()
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            trainer = get_trainer(icfg, device=d)
+            load_reference_checkpoint_(trainer, {"state_dict": sd})
+            with torch.inference_mode():
+                outs.append(trainer.encoder(
+                    feats.to(d), tree_map(lambda x: x.to(d), pyr)).cpu())
+        err = float((outs[0] - outs[1]).abs().max())
+        occupied = len(np.unique(np.floor(pair["points0"] / icfg.voxel_size),
+                                 axis=0))
+        print(f"  (d) reference-layout ResUNetFatBN-128 state_dict "
+              f"({len(sd)} tensors) imported; encoder on a tree frame "
+              f"({len(pair['points0'])} points in {occupied} voxels of "
+              f"{icfg.voxel_size:g} m, {int(vmask.sum())} kept at level 0 "
+              f"of {icfg.capacities[0]}), card vs CPU: max abs err "
+              f"{err:.3e} (tolerance {ENC_F32_TOL:g})")
+        if not err <= ENC_F32_TOL or not torch.isfinite(outs[0]).all():
+            raise AssertionError("the imported encoder differs between the "
+                                 "card and the CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def main():
@@ -2099,20 +2410,32 @@ def main():
     k1_ploop, k2_ploop = predator_loop_phase(dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+    t = phase("20 the real-data path: a KITTI-format tree, FCGF training "
+              "and both eval scripts, Predator kitti.yaml train and test, "
+              "the .pth import")
+    real = real_data_phase(dev)
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
     k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_rows + k2_pt_rows])
     record = {"kernels": [
-        dict(K1, route="cuda", launches=launches + k1_train + k1_loop,
+        dict(K1, route="cuda",
+             launches=launches + k1_train + k1_loop + real["real_fcgf"][0],
              launches_by_path={"eval": launches, "train": k1_train,
                                "predator_train": 0, "fcgf_loop": k1_loop,
-                               "predator_loop": k1_ploop},
+                               "predator_loop": k1_ploop,
+                               "real_fcgf": real["real_fcgf"][0],
+                               "real_predator": 0},
              max_abs_err=max_err, ms=k1_b2["ms"],
              plain_ms=k1_b2["plain_ms"], bound_ms=k1_b2["bound_ms"],
              bound_by="bytes", library_ms=k1_b2["library_ms"]),
         dict(K2, route="cuda",
-             launches=k2_train + k2_pt + k2_loop + k2_ploop,
+             launches=(k2_train + k2_pt + k2_loop + k2_ploop
+                       + real["real_fcgf"][1] + real["real_predator"][1]),
              launches_by_path={"train": k2_train, "predator_train": k2_pt,
                                "fcgf_loop": k2_loop,
-                               "predator_loop": k2_ploop},
+                               "predator_loop": k2_ploop,
+                               "real_fcgf": real["real_fcgf"][1],
+                               "real_predator": real["real_predator"][1]},
              max_abs_err=k2_err, ms=k2_step["ms"],
              plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
              bound_by="operations", library_ms=k2_step["library_ms"],

@@ -34,7 +34,20 @@ def test_synthetic_pairs_equal_the_reference(phase):
             np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_make_dataset_names():
+def test_make_dataset_names(tmp_path):
+    """Every dataset name of the reference builds its loader (on trees
+    written here, as apr_tpu's make_dataset builds its own); an unknown
+    name raises."""
+    import importlib.util
+
+    from test_torch_legacy_datasets import FIELDS, write_indoor, \
+        write_nuscenes
+
+    from apr_torch.data.kitti import KittiBaselinePairDataset, \
+        KittiComplementDataset
+    from apr_torch.data.synthetic import write_kitti_tree
+    from apr_tpu.data.datasets import make_dataset as ref_make_dataset
+
     cfg = APRConfig(dataset="synthetic", seed=3, pair_min_dist=2.0,
                     pair_max_dist=3.0)
     ds = make_dataset(cfg, "val")
@@ -42,11 +55,37 @@ def test_make_dataset_names():
         16, 10_003, 2.0, 3.0)
     assert len(make_dataset(cfg.replace(dataset="SyntheticPairDataset"),
                             "train")) == 64
-    for name in ("PairComplementKittiDataset", "KITTIPairDataset",
-                 "PairComplementNuscenesDataset", "ThreeDMatchPairDataset",
-                 "ModelNetHdf"):
-        with pytest.raises(NotImplementedError, match="C1"):
-            make_dataset(cfg.replace(dataset=name), "train")
+
+    kitti = str(tmp_path / "kitti")
+    write_kitti_tree(kitti, {0: 40}, n_points=500, step=2.0, radius=30.0)
+    nusc = str(tmp_path / "nuscenes")
+    write_nuscenes(nusc, frames=40, n_points=500)
+    indoor = write_indoor(str(tmp_path / "indoor"))
+    roots = {"PairComplementKittiDataset": (kitti, KittiComplementDataset),
+             "KITTIPairDataset": (kitti, KittiBaselinePairDataset),
+             "KITTINMPairDataset": (kitti, KittiBaselinePairDataset),
+             "KITTIRandDistPairDataset": (kitti, KittiBaselinePairDataset),
+             "PairComplementNuscenesDataset": (nusc, None),
+             "IndoorDataset": (indoor, None),
+             "ThreeDMatchPairDataset": (indoor, None)}
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        with h5py.File(tmp_path / "ply_data_train0.h5", "w") as f:
+            f["data"] = np.zeros((2, 64, 3), np.float32)
+            f["label"] = np.zeros((2, 1), np.int64)
+        roots["ModelNetHdf"] = (str(tmp_path), None)
+    for name, (root, cls) in roots.items():
+        c = cfg.replace(dataset=name, kitti_root=root, **FIELDS)
+        ours = make_dataset(c, "train")
+        ref = ref_make_dataset(RefConfig(**{
+            k: v for k, v in c.to_dict().items()
+            if k in RefConfig.__dataclass_fields__}), "train")
+        assert type(ours).__name__ == type(ref).__name__, name
+        assert cls is None or isinstance(ours, cls)
+        assert len(ours) == len(ref) > 0, name
+        if isinstance(ours, KittiBaselinePairDataset):
+            assert ours.mode == ref.mode
     with pytest.raises(ValueError, match="unknown dataset"):
         make_dataset(cfg.replace(dataset="nope"), "train")
 
