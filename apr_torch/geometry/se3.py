@@ -1,11 +1,12 @@
 """SE(3) rigid-transform math, 4x4 homogeneous convention (port of
-``apr_tpu/geometry/se3.py``: the functions the registration eval and the
-validation step use)."""
+``apr_tpu/geometry/se3.py``)."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -50,3 +51,26 @@ def make_transform(rotation: torch.Tensor,
     t[:3, :3] = rotation
     t[:3, 3] = translation
     return t
+
+
+def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Transform equivalent to applying ``b`` first, then ``a``."""
+    return a @ b
+
+
+def inverse(transform: torch.Tensor) -> torch.Tensor:
+    r = transform[:3, :3]
+    t = transform[:3, 3]
+    return make_transform(r.T, -r.T @ t)
+
+
+def random_rigid_transform(generator: Optional[torch.Generator] = None,
+                           rotation_range_deg: float = 360.0
+                           ) -> torch.Tensor:
+    """Random rotation about the origin (no translation): Euler angles
+    uniform in +-range/2 from three float32 uniforms of ``generator`` (the
+    reference's ``sample_random_trans`` with a zero pivot)."""
+    u = torch.rand(3, generator=generator, dtype=torch.float32)
+    angles = (u - 0.5) * np.float32(rotation_range_deg * math.pi / 180.0)
+    return make_transform(rotation_from_euler(angles),
+                          torch.zeros(3, dtype=torch.float32))

@@ -288,6 +288,18 @@ def build_pyramid_from_level(level0: SparseLevel, capacities: Sequence[int],
     )
 
 
+def build_pyramid(grid, capacities: Sequence[int],
+                  conv1_kernel_size: int = 5) -> SparsePyramid:
+    """The full coordinate pyramid of a level-0 voxelization ``grid`` (a
+    batched :class:`apr_torch.ops.voxelize.VoxelGrid`, whose capacity is
+    ``capacities[0]``)."""
+    assert capacities[0] == grid.keys.shape[1], (capacities[0],
+                                                 grid.keys.shape[1])
+    return build_pyramid_from_level(
+        SparseLevel(coords=grid.coords, keys=grid.keys, mask=grid.mask),
+        capacities, conv1_kernel_size)
+
+
 def sparse_conv_apply(
     feats: torch.Tensor,      # [N_in, Ci] source features
     table: torch.Tensor,      # [N_out, K] indices into feats (sentinel N_in)

@@ -1,5 +1,6 @@
-"""Correspondences: feature-space nearest neighbours (the eval path) and
-ground-truth matches under the GT transform (the training batch), port of
+"""Correspondences: feature-space nearest neighbours (the eval path, mutual
+or not), ground-truth matches under the GT transform (the training batch)
+and the matching + robust-pose convenience, port of
 ``apr_tpu/registration/matching.py``."""
 
 from __future__ import annotations
@@ -35,6 +36,58 @@ def feature_nn_correspondences(
         tgt_idx=idx,
         mask=mask0 & (idx < feats1.shape[0]),
     )
+
+
+def mutual_nn_correspondences(
+    feats0: torch.Tensor,
+    feats1: torch.Tensor,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Correspondences:
+    """Keep only pairs that are each other's feature-space NN."""
+    n0 = feats0.shape[0]
+    if mask0 is None:
+        mask0 = torch.ones(n0, dtype=torch.bool, device=feats0.device)
+    _, idx01 = nn_distances(feats0, feats1, s_mask=mask1)
+    _, idx10 = nn_distances(feats1, feats0, s_mask=mask0)
+    back = idx10[idx01.clamp(0, feats1.shape[0] - 1).long()]
+    mutual = back == torch.arange(n0, device=feats0.device)
+    return Correspondences(
+        src_idx=torch.arange(n0, dtype=torch.int32, device=feats0.device),
+        tgt_idx=idx01,
+        mask=mask0 & mutual & (idx01 < feats1.shape[0]),
+    )
+
+
+def find_nn(
+    feats0: torch.Tensor,
+    feats1: torch.Tensor,
+    mask1: Optional[torch.Tensor] = None,
+):
+    """Nearest neighbour in feature space: (idx int32 [N0], sqdist [N0])."""
+    d2, idx = nn_distances(feats0, feats1, s_mask=mask1)
+    return idx, d2
+
+
+def pose_estimation(
+    xyz0: torch.Tensor,
+    xyz1: torch.Tensor,
+    feats0: torch.Tensor,
+    feats1: torch.Tensor,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+):
+    """Feature matching weighted by the matched pair's feature inner
+    product, refined by the robust IRLS pose
+    (:func:`apr_torch.geometry.robust.est_rigid_robust`).  Returns
+    (transform [4, 4], weights [N0])."""
+    from apr_torch.geometry.robust import est_rigid_robust
+
+    n1 = feats1.shape[0]
+    corr = feature_nn_correspondences(feats0, feats1, mask0, mask1)
+    tgt = corr.tgt_idx.clamp(0, n1 - 1).long()
+    weight = (feats0 * feats1[tgt]).sum(dim=1) * corr.mask
+    return est_rigid_robust(xyz0, xyz1[tgt], weight), weight
 
 
 def gt_correspondences(

@@ -1,5 +1,6 @@
 """Registration metrics: RTE / RRE, success (RTE < 2 m and RRE < 5 deg,
-the reference's criterion) and the hit ratio of matched pairs.  Port of
+the reference's criterion), the hit ratio of matched pairs and the clamped
+mean distance of estimated against GT-warped points.  Port of
 ``apr_tpu/registration/metrics.py``."""
 
 from __future__ import annotations
@@ -37,3 +38,16 @@ def hit_ratio(xyz0: torch.Tensor, xyz1_nn: torch.Tensor, t_gt: torch.Tensor,
         return hit.mean()
     w = mask.float()
     return (hit * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def corr_dist(t_est: torch.Tensor, t_gt: torch.Tensor, xyz0: torch.Tensor,
+              weight: Optional[torch.Tensor] = None,
+              max_dist: float = 1.0) -> torch.Tensor:
+    """Clamped mean distance between the est- and gt-warped copies of
+    xyz0 (weighted when ``weight`` is given)."""
+    d = torch.linalg.vector_norm(
+        apply_transform(xyz0, t_est) - apply_transform(xyz0, t_gt), dim=1)
+    d = torch.clamp(d, max=max_dist)
+    if weight is None:
+        return d.mean()
+    return (d * weight).sum() / torch.clamp(weight.sum(), min=1e-9)

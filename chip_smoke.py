@@ -89,7 +89,18 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    configs/train/kitti.yaml (only kitti_root, out_dir, max_epoch,
    chamfer_mode and fused_build overridden; 0 K1, 4 K2 per step and val
    pair) and test mode on configs/test/kitti.yaml; a reference-layout
-   ResUNetFatBN-128 .pth state_dict imported, its encoder card vs CPU.
+   ResUNetFatBN-128 .pth state_dict imported, its encoder card vs CPU;
+21. the odometry-pose GT path on a KITTI-format sequence whose odometry
+   poses carry a known error: ``apr_torch.tools.prepare_icp_cache`` on the
+   card (one K2 launch per ICP iteration and per information matrix; every
+   cache file the loaders read; ICP reduces each transform's error to the
+   true pose), then ``python -m`` again (it keeps every file); one pair's
+   ICP and one multiway side card vs CPU (within 1e-9, equal iterations);
+   the pair's ICP with scipy's cKDTree on the host, and K2 at the ICP's
+   shape exact against its plain version; an FCGF train step through the
+   CLI on ``use_old_pose=True`` pairs (1 K1, 4 K2), the baseline loader's
+   GT from the cache, ``extract_features`` on one frame (1 K1, card vs
+   CPU) and ``cal_overlap`` on three frames (equal to cKDTree's ratios).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2000,6 +2011,464 @@ def real_data_phase(dev):
     return launches
 
 
+# the odometry-pose GT path (phase 21): a KITTI-format sequence 00 of
+# ICP_FRAMES frames of at most 120000 points, 5 m apart on a 50 m circle (2
+# train pairs at the tool's defaults: pairs 5-20 m apart, 3 + 3 complements
+# 10 m apart, so 25 ICPs a pair); its poses/00.txt holds camera poses
+# whose velo2cam chain (the tool's odometry init) gives the true LiDAR
+# poses, each frame's perturbed by a known error: a yaw of ICP_ROT_DEG
+# times (t mod 8) and a rise of ICP_TRANS_M times (3t mod 8), so any two
+# frames of one pair or one side (at most 7 apart) differ by 1-7 steps of
+# each (a yaw leaves the rise's difference as it is)
+ICP_FRAMES = 32
+ICP_POINTS = 120000
+ICP_ROT_DEG, ICP_TRANS_M = 0.06, 0.01
+# (c): the card against the CPU's plain K2 (tens of seconds for one
+# full-size search) on crops of one pair's and one side's clouds: the
+# points within ICP_CPU_RADIUS of the key frame's sensor under the odometry
+# init, at most ICP_CPU_POINTS of each (a seeded choice)
+ICP_CPU_RADIUS, ICP_CPU_POINTS = 15.0, 2500
+
+
+def perturbed_odometry(lidar_poses):
+    """KITTI odometry camera poses ``V (L_t E_t) V^-1`` of the LiDAR poses
+    ``L_t`` under ``velo2cam_matrix`` (V = its transpose), with the known
+    per-frame error ``E_t``."""
+    from apr_torch.data.kitti import velo2cam_matrix
+    from apr_torch.geometry.pose_graph import se3_exp
+
+    v = velo2cam_matrix().T
+    out = []
+    for t, lidar in enumerate(lidar_poses):
+        xi = np.r_[0.0, 0.0, np.radians(ICP_ROT_DEG) * (t % 8), 0.0, 0.0,
+                   ICP_TRANS_M * (3 * t % 8)]
+        out.append(v @ lidar @ se3_exp(xi) @ np.linalg.inv(v))
+    return out
+
+
+def pose_error(m, truth):
+    """(rotation error in degrees, translation error in metres)."""
+    r = m[:3, :3] @ truth[:3, :3].T
+    cos = np.clip((np.trace(r) - 1.0) / 2.0, -1.0, 1.0)
+    return float(np.degrees(np.arccos(cos))), float(
+        np.linalg.norm(m[:3, 3] - truth[:3, 3]))
+
+
+class KDTreeSearch:
+    """scipy's cKDTree in place of :class:`apr_torch.utils.pointcloud.
+    NearestSearch` (the same interface): the reference's search, on the
+    host, for phase 21's yardstick."""
+
+    def __init__(self, target, device=None):
+        from scipy.spatial import cKDTree
+
+        self.tree = cKDTree(target)
+
+    def query(self, queries, distance_upper_bound=np.inf):
+        return self.tree.query(queries, k=1,
+                               distance_upper_bound=distance_upper_bound)
+
+
+def wrapped(module, name, record):
+    """Replace ``module.name`` by a wrapper that appends (result, seconds)
+    to ``record``; returns the undo."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        record.append((out, time.perf_counter() - t0))
+        return out
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def crop(points, init, radius, n, seed):
+    """The points of ``points`` within ``radius`` (in x, y) of the key
+    frame's sensor under ``init``, at most ``n`` of them (a seeded choice,
+    file order kept)."""
+    warped = points @ init[:3, :3].T + init[:3, 3]
+    keep = np.flatnonzero(np.linalg.norm(warped[:, :2], axis=1) < radius)
+    if len(keep) > n:
+        keep = np.sort(np.random.default_rng(seed).choice(keep, n,
+                                                          replace=False))
+    return points[keep]
+
+
+def icp_cache_phase(dev):
+    """Phase 21: the odometry-pose GT path.  (a) a KITTI-format tree with
+    perturbed odometry poses; (b) ``apr_torch.tools.prepare_icp_cache`` on
+    the card (K2 launches against ICP iterations and information matrices,
+    every cache file the loader reads, each transform's error to the true
+    pose before and after ICP; then ``python -m`` again, which keeps every
+    file); (c) one pair's ICP and one multiway side on the card and on the
+    CPU (plain K2) from the same crops; (d) the pair's ICP with scipy's
+    cKDTree on the host, and K2 at the ICP's shape against its plain
+    version; (e) the cache in use: an FCGF train step through the loop CLI
+    on ``use_old_pose=True`` pairs, the baseline loader's GT, one frame's
+    ``extract_features`` and ``cal_overlap`` on three frames.  Returns the
+    launch counts by path and K2's ICP-shape timing."""
+    import logging
+    import shutil
+    import tempfile
+
+    import apr_torch.data.multiway as multiway_mod
+    import apr_torch.data.pipeline as pipeline_mod
+    import apr_torch.geometry.icp as icp_mod
+    import apr_torch.tools.prepare_icp_cache as tool_mod
+    import apr_torch.training.trainer as trainer_mod
+    import apr_torch.utils.pointcloud as pointcloud_mod
+    from apr_torch.config import APRConfig
+    from apr_torch.data.kitti import KittiBaselinePairDataset, \
+        KittiComplementDataset, velo2cam_matrix
+    from apr_torch.data.multiway import _voxel_dedup, full_registration
+    from apr_torch.data.synthetic import write_kitti_tree
+    from apr_torch.geometry.icp import registration_icp
+    from apr_torch.ops.distance import nn_min, nn_min_plain
+    from apr_torch.ops.searchsorted import searchsorted_left
+    from apr_torch.tools import cal_overlap
+    from apr_torch.train import main as train_main
+    from apr_torch.training.trainer import get_trainer
+    from apr_torch.utils.misc import extract_features
+
+    tmp = tempfile.mkdtemp(prefix="apr_torch_icp_")
+    out = {}
+    try:
+        # (a) the tree, its odometry poses perturbed
+        tree = os.path.join(tmp, "kitti")
+        t0 = time.perf_counter()
+        lidar = write_kitti_tree(tree, {0: ICP_FRAMES}, n_points=ICP_POINTS,
+                                 step=TREE_STEP, radius=TREE_RADIUS)[0]
+        cam = perturbed_odometry(lidar)
+        with open(os.path.join(tree, "poses", "00.txt"), "w") as f:
+            f.writelines(" ".join("%.12e" % v for v in c[:3].reshape(-1))
+                         + "\n" for c in cam)
+        cfg = APRConfig(kitti_root=tree, use_old_pose=True)
+        ds = KittiComplementDataset(cfg, "train")
+        print(f"  (a) tree: sequence 00, {ICP_FRAMES} frames of at most "
+              f"{ICP_POINTS} points, written in "
+              f"{time.perf_counter() - t0:.1f} s; odometry error per frame "
+              f"{ICP_ROT_DEG:g} deg, {ICP_TRANS_M:g} m; {len(ds.files)} "
+              f"train pairs at the FCGF defaults: "
+              f"{[tuple(int(x) for x in e[:3]) for e in ds.files]}")
+        if not 2 <= len(ds.files) <= 4:
+            raise AssertionError("the tree must give 2-4 train pairs")
+
+        # (b) the tool on the card
+        icps, infos, graphs = [], [], []
+        undo = [wrapped(multiway_mod, "registration_icp", icps),
+                wrapped(tool_mod, "registration_icp", icps),
+                wrapped(multiway_mod, "information_matrix", infos),
+                wrapped(multiway_mod, "global_optimization", graphs)]
+        nn_min.launches = 0
+        searchsorted_left.launches = 0
+        t0 = time.perf_counter()
+        try:
+            summary = tool_mod.main(["--kitti_root", tree, "--phase",
+                                     "train", "--device", DEVICE])
+        finally:
+            for fn in undo:
+                fn()
+        tool_s = time.perf_counter() - t0
+        k1_tool, k2_tool = searchsorted_left.launches, nn_min.launches
+        iters = sum(r.num_iterations for r, _ in icps)
+        icp_s = sum(s for _, s in icps)
+        graph_ms = [s * 1e3 for _, s in graphs]
+        print(f"  (b) apr_torch.tools.prepare_icp_cache.main(--kitti_root "
+              f"TREE --phase train): {summary['written']} files "
+              f"in {tool_s:.1f} s; {len(icps)} ICPs, {iters} iterations "
+              f"({min(r.num_iterations for r, _ in icps)}-"
+              f"{max(r.num_iterations for r, _ in icps)} an ICP), "
+              f"{len(infos)} information matrices; K1 / K2 launches "
+              f"{k1_tool} / {k2_tool}")
+        print(f"    ICP {icp_s:.2f} s: {icp_s / len(icps) * 1e3:.1f} ms an "
+              f"ICP, {icp_s / iters * 1e3:.2f} ms an iteration; "
+              f"{icp_s / len(ds.files):.2f} s of ICP a pair; pose graphs "
+              f"{len(graphs)}, {np.mean(graph_ms):.1f} ms each on the host "
+              f"({min(graph_ms):.1f}-{max(graph_ms):.1f})")
+        if k2_tool != iters + len(infos) or k1_tool != 0:
+            raise AssertionError("K2 must launch once per ICP iteration and "
+                                 "once per information matrix, K1 never")
+        wanted = set()
+        for drive, t0_, t1_, cmpl0, cmpl1 in ds.files:
+            wanted.add((drive, int(t0_), int(t1_)))
+            for key, cmpl in ((t0_, cmpl0), (t1_, cmpl1)):
+                wanted.update((drive, int(c), int(key)) for c in cmpl)
+        names = {"%d_%d_%d.npy" % k for k in wanted}
+        have = set(os.listdir(summary["icp_path"]))
+        # a pair's own file can also be a complement's of the other key
+        # frame (the multiway result then replaces the pair's ICP, as in the
+        # reference): so ``written`` may exceed the distinct names
+        if not names <= have:
+            raise AssertionError(f"the cache lacks {sorted(names - have)}")
+        v2c = velo2cam_matrix()
+        errors = []
+        for drive, s, k in sorted(wanted):
+            m = np.load(os.path.join(summary["icp_path"],
+                                     "%d_%d_%d.npy" % (drive, s, k)))
+            truth = np.linalg.inv(lidar[k]) @ lidar[s]
+            before = pose_error(tool_mod.odo_init(v2c, cam[s], cam[k]),
+                                truth)
+            after = pose_error(m, truth)
+            pair = any((drive, s, k) == tuple(int(x) for x in e[:3])
+                       for e in ds.files)
+            errors.append(before + after)
+            print(f"    {drive}_{s}_{k}{' (pair)' if pair else ''}: "
+                  f"odometry init {before[0]:.4f} deg {before[1] * 100:.2f} "
+                  f"cm -> ICP {after[0]:.4f} deg {after[1] * 100:.3f} cm")
+            if m.shape != (4, 4) or m.dtype != np.float64:
+                raise AssertionError("a cache entry is not float64 [4, 4]")
+            if not (after[0] < before[0] and after[1] < before[1]):
+                raise AssertionError(f"ICP did not reduce the error of "
+                                     f"{drive}_{s}_{k}")
+        mean = np.mean(errors, axis=0)
+        print(f"    all {len(errors)}: rotation error {mean[0]:.4f} -> "
+              f"{mean[2]:.4f} deg, translation {mean[1] * 100:.2f} -> "
+              f"{mean[3] * 100:.3f} cm (means)")
+        t0 = time.perf_counter()
+        rerun = subprocess.run(
+            [sys.executable, "-m", "apr_torch.tools.prepare_icp_cache",
+             "--kitti_root", tree, "--phase", "train", "--device", DEVICE],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        if rerun.returncode != 0 or "wrote 0 cache entries" not in \
+                rerun.stdout:
+            raise AssertionError(f"python -m apr_torch.tools."
+                                 f"prepare_icp_cache rerun: {rerun.stdout}"
+                                 f"{rerun.stderr}")
+        print(f"    python -m ... again: {rerun.stdout.strip()} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        out["icp"] = k2_tool
+
+        # (c) card against CPU on crops of one pair and one side
+        drive, t0_, t1_, cmpl0, _ = ds.files[0]
+        n_side = cfg.num_complement_one_side
+        poses = ds._get_poses(drive)
+
+        def dedup(t):
+            return _voxel_dedup(ds._get_xyz(drive, t), 0.05, dev)
+
+        src, tgt = dedup(t0_), dedup(t1_)
+        init = tool_mod.odo_init(v2c, poses[t0_], poses[t1_])
+        side = [int(t0_)] + [int(t) for t in cmpl0[:n_side]]
+        side_init = [np.eye(4)] + [tool_mod.odo_init(v2c, poses[t], poses[t0_])
+                                   for t in side[1:]]
+        crops = dict(
+            src=crop(src, init, ICP_CPU_RADIUS, ICP_CPU_POINTS, 0),
+            tgt=crop(tgt, np.eye(4), ICP_CPU_RADIUS, ICP_CPU_POINTS, 1),
+            side=[crop(dedup(t), m, ICP_CPU_RADIUS, ICP_CPU_POINTS, 2 + i)
+                  for i, (t, m) in enumerate(zip(side, side_init))])
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            its = []
+            undo = wrapped(multiway_mod, "registration_icp", its)
+            t0 = time.perf_counter()
+            try:
+                reg = registration_icp(crops["src"], crops["tgt"], 0.2, init,
+                                       device=d)
+                nodes = full_registration(crops["side"], side_init,
+                                          device=d)
+            finally:
+                undo()
+            runs.append(dict(reg=reg, nodes=nodes,
+                             iters=[reg.num_iterations] + [
+                                 r.num_iterations for r, _ in its],
+                             s=time.perf_counter() - t0))
+        gpu, cpu = runs
+        err = max([np.abs(gpu["reg"].transformation
+                          - cpu["reg"].transformation).max()]
+                  + [np.abs(a - b).max() for a, b in zip(gpu["nodes"],
+                                                         cpu["nodes"])])
+        print(f"  (c) pair {drive}_{t0_}_{t1_} and the left side of "
+              f"{t0_} ({side}), crops of {len(crops['src'])} / "
+              f"{len(crops['tgt'])} and {[len(x) for x in crops['side']]} "
+              f"points: card {gpu['s']:.2f} s, CPU {cpu['s']:.2f} s; "
+              f"iterations card {gpu['iters']}, CPU {cpu['iters']}; max "
+              f"|card - CPU| over the transforms {err:.3e} (tolerance 1e-9)")
+        if gpu["iters"] != cpu["iters"] or not err <= 1e-9:
+            raise AssertionError("ICP differs between the card and the CPU")
+
+        # (d) the same pair's ICP with cKDTree on the host, K2 at the shape;
+        # the card's iteration split into nn_min (synchronised), the rest
+        # of the search (copies, the float64 distances) and the rest of the
+        # iteration (the warp, the float64 Kabsch)
+        searches, nn_calls = [], []
+
+        def synced_nn_min(*a, **k):
+            found = nn_min(*a, **k)
+            torch.cuda.synchronize()
+            return found
+        pointcloud_mod.nn_min = synced_nn_min
+        undo = [wrapped(pointcloud_mod.NearestSearch, "query", searches),
+                wrapped(pointcloud_mod, "nn_min", nn_calls),
+                lambda: setattr(pointcloud_mod, "nn_min", nn_min)]
+        t0 = time.perf_counter()
+        try:
+            card = registration_icp(src, tgt, 0.2, init, device=dev)
+        finally:
+            for fn in undo:     # in this order: the last restores nn_min
+                fn()
+        card_s = time.perf_counter() - t0
+        per_it = [sum(x for _, x in r) * 1e3 / card.num_iterations
+                  for r in (nn_calls, searches)]
+        icp_mod.NearestSearch = KDTreeSearch
+        try:
+            t0 = time.perf_counter()
+            host = registration_icp(src, tgt, 0.2, init)
+            host_s = time.perf_counter() - t0
+        finally:
+            icp_mod.NearestSearch = pointcloud_mod.NearestSearch
+        diff = float(np.abs(card.transformation - host.transformation).max())
+        print(f"  (d) pair {drive}_{t0_}_{t1_}, {len(src)} x {len(tgt)} "
+              f"points: ICP on the card {card_s * 1e3:.1f} ms "
+              f"({card.num_iterations} iterations, "
+              f"{card_s / card.num_iterations * 1e3:.2f} ms each); with "
+              f"scipy's cKDTree on the host {host_s * 1e3:.1f} ms "
+              f"({host.num_iterations} iterations, "
+              f"{host_s / host.num_iterations * 1e3:.2f} ms each); max "
+              f"|card - cKDTree| {diff:.3e}, fitness {card.fitness:.6f} / "
+              f"{host.fitness:.6f}")
+        print(f"    the card's iteration: nn_min {per_it[0]:.2f} ms "
+              f"(synchronised), the rest of the search (copies, float64 "
+              f"distances) {per_it[1] - per_it[0]:.2f} ms, the warp and the "
+              f"float64 Kabsch "
+              f"{card_s * 1e3 / card.num_iterations - per_it[1]:.2f} ms")
+        warped = src @ init[:3, :3].T + init[:3, 3]
+        q = torch.from_numpy(warped.astype(np.float32))[None].to(dev)
+        s = torch.from_numpy(np.ascontiguousarray(tgt))[None].to(dev)
+        m = torch.ones(s.shape[:2], dtype=torch.bool, device=dev)
+        k2_err = k2_check(q, s, m, None, "the ICP's shape")[2]
+        pairs = q.shape[1] * s.shape[1]
+        bound_ms = max(pairs * K2_OPS_PER_PAIR / FP32_OPS_PER_S,
+                       (q.numel() + s.numel()) * 4 / HBM_BYTES_PER_S
+                       + q.shape[1] * 8 / HBM_BYTES_PER_S) * 1e3
+        kd = KDTreeSearch(tgt)
+        t0 = time.perf_counter()
+        kd.query(warped, 0.2)
+        kd_ms = (time.perf_counter() - t0) * 1e3
+        shape = dict(ms=cuda_ms(lambda: nn_min(q, s), 5),
+                     plain_ms=cuda_ms(lambda: nn_min_plain(q, s, m), 1),
+                     bound_ms=bound_ms, ckdtree_query_ms=kd_ms,
+                     max_abs_err=k2_err)
+        print(f"    K2 at the ICP's shape (B=1, {q.shape[1]} x {s.shape[1]},"
+              f" {pairs:.3e} pairs): exact against its plain version; "
+              f"nn_min {shape['ms']:.3f} ms, plain {shape['plain_ms']:.3f} "
+              f"ms, bound {bound_ms:.3f} ms ({bound_ms / shape['ms']:.2f} of "
+              f"it); one cKDTree query on the host {kd_ms:.1f} ms")
+        out["icp_shape"] = shape
+
+        # (e) the cache in use
+        run = os.path.join(HERE, "build", "chip_smoke", "icp_fcgf")
+        shutil.rmtree(run, ignore_errors=True)
+        argv = REAL_ARGV + ["--kitti_root", tree, "--out_dir", run,
+                            "--device", DEVICE, "--use_old_pose", "true",
+                            "--batch_size", str(len(ds.files))]
+        counts, undo = counted_builds([trainer_mod, pipeline_mod])
+        searchsorted_left.launches = 0
+        nn_min.launches = 0
+        t0 = time.perf_counter()
+        try:
+            res = train_main(argv)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        k1, k2, builds = searchsorted_left.launches, nn_min.launches, \
+            counts["builds"]
+        print(f"  (e) python -m apr_torch.train ... --use_old_pose true "
+              f"--batch_size {len(ds.files)}: {time.perf_counter() - t0:.1f}"
+              f" s, {res['train_steps']} step, train "
+              f"{json.dumps(res['last_train'])}; batch builds {builds}, K1 "
+              f"{k1}, K2 {k2}")
+        if (res["train_steps"], builds, k1, k2) != (1, 1, 1, 4) or not all(
+                np.isfinite(v) for v in res["last_train"].values()) or \
+                res["last_train"]["skipped_nonfinite"] != 0.0:
+            raise AssertionError("the odometry-pose FCGF step: one step, one "
+                                 "build, 1 K1 and 4 K2, finite, no skip")
+        out["icp_loop"] = (k1, k2)
+
+        bcfg = APRConfig(kitti_root=tree)
+        base = KittiBaselinePairDataset(bcfg, "train", "nm")
+        warned = []
+        handler = logging.Handler()
+        handler.emit = lambda rec: warned.append(rec.getMessage())
+        kitti_log = logging.getLogger("apr_torch.data.kitti")
+        kitti_log.addHandler(handler)
+        try:
+            for drive, s_, k in sorted(wanted):
+                got = base._gt_transform(drive, s_, k)
+                if not np.array_equal(got, np.load(os.path.join(
+                        summary["icp_path"], "%d_%d_%d.npy" % (drive, s_,
+                                                              k)))):
+                    raise AssertionError("the baseline loader's GT is not "
+                                         "the cached transform")
+        finally:
+            kitti_log.removeHandler(handler)
+        missing = [w for w in warned if "ICP cache missing" in w]
+        print(f"    KittiBaselinePairDataset (nm, {len(base)} pairs of its "
+              f"own): the GT of the {len(wanted)} cached keys read from the "
+              f"cache, {len(missing)} 'ICP cache missing' warnings")
+        if missing:
+            raise AssertionError("the baseline loader missed the cache")
+
+        fcfg = APRConfig(model="ResUNetFatBN", model_n_out=128,
+                         conv1_kernel_size=5, compute_dtype="float32")
+        frame = ds._get_xyz(drive, t0_)
+        searchsorted_left.launches = 0
+        feats = [extract_features(get_trainer(fcfg, device=dev), frame,
+                                  fcfg.voxel_size, fcfg.capacities, 5)]
+        k1_ef = searchsorted_left.launches
+        feats.append(extract_features(get_trainer(fcfg, device="cpu"), frame,
+                                      fcfg.voxel_size, fcfg.capacities, 5))
+        ef_err = float(np.abs(feats[0][1] - feats[1][1]).max())
+        print(f"    extract_features on frame {t0_} ({len(frame)} points): "
+              f"{len(feats[0][0])} voxels x {feats[0][1].shape[1]}, K1 "
+              f"{k1_ef}; card vs CPU: xyz equal "
+              f"{np.array_equal(feats[0][0], feats[1][0])}, features max abs "
+              f"err {ef_err:.3e} (tolerance {ENC_F32_TOL:g})")
+        if k1_ef != 1 or not np.array_equal(feats[0][0], feats[1][0]) or \
+                not ef_err <= ENC_F32_TOL:
+            raise AssertionError("extract_features: one K1 launch, card "
+                                 "equal to the CPU")
+        out["extract_features"] = k1_ef
+
+        # three frames as 3DMatch-style fragments: in one frame (frame
+        # t0's, by the true poses)
+        frag = os.path.join(tmp, "fragments")
+        os.makedirs(frag)
+        for t in (t0_, t0_ + 1, t0_ + 2):
+            m = np.linalg.inv(lidar[t0_]) @ lidar[t]
+            np.save(os.path.join(frag, "frame_%02d.npy" % t),
+                    (ds._get_xyz(drive, t) @ m[:3, :3].T
+                     + m[:3, 3]).astype(np.float32))
+        overlaps = os.path.join(tmp, "overlaps.txt")
+        nn_min.launches = 0
+        t0 = time.perf_counter()
+        cal_overlap.main(["--dir", frag, "--voxel", "0.0625", "--out",
+                          overlaps, "--device", DEVICE])
+        secs = time.perf_counter() - t0
+        k2_ov = nn_min.launches
+        files = sorted(os.listdir(frag))
+        clouds = [np.load(os.path.join(frag, f)) for f in files]
+        want = []
+        for i in range(3):
+            for j in range(i + 1, 3):
+                d0 = KDTreeSearch(clouds[j]).query(clouds[i], 0.0625)[0]
+                d1 = KDTreeSearch(clouds[i]).query(clouds[j], 0.0625)[0]
+                ratio = min(np.isfinite(d0).mean(), np.isfinite(d1).mean())
+                want.append(f"{files[i]} {files[j]} {ratio:.6f}")
+        with open(overlaps) as f:
+            got = f.read().splitlines()
+        print(f"    apr_torch.tools.cal_overlap.main on 3 frames: "
+              f"{secs:.2f} s, K2 {k2_ov}; {got}; cKDTree's ratios equal: "
+              f"{got == want}")
+        if got != want or k2_ov != 6:
+            raise AssertionError("cal_overlap differs from the cKDTree "
+                                 "ratios or did not launch K2 twice a pair")
+        out["cal_overlap"] = k2_ov
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     import argparse
 
@@ -2416,36 +2885,52 @@ def main():
     real = real_data_phase(dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
-    k2_err = max([k2_err] + [r["max_abs_err"] for r in k2_rows + k2_pt_rows])
+    t = phase("21 the odometry-pose GT path: prepare_icp_cache on the card, "
+              "ICP card vs CPU and vs cKDTree, the cache in use")
+    icp = icp_cache_phase(dev)
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+    k2_err = max([k2_err, icp["icp_shape"]["max_abs_err"]]
+                 + [r["max_abs_err"] for r in k2_rows + k2_pt_rows])
     record = {"kernels": [
         dict(K1, route="cuda",
-             launches=launches + k1_train + k1_loop + real["real_fcgf"][0],
+             launches=(launches + k1_train + k1_loop + real["real_fcgf"][0]
+                       + icp["icp_loop"][0] + icp["extract_features"]),
              launches_by_path={"eval": launches, "train": k1_train,
                                "predator_train": 0, "fcgf_loop": k1_loop,
                                "predator_loop": k1_ploop,
                                "real_fcgf": real["real_fcgf"][0],
-                               "real_predator": 0},
+                               "real_predator": 0, "icp": 0,
+                               "icp_fcgf": icp["icp_loop"][0],
+                               "extract_features": icp["extract_features"]},
              max_abs_err=max_err, ms=k1_b2["ms"],
              plain_ms=k1_b2["plain_ms"], bound_ms=k1_b2["bound_ms"],
              bound_by="bytes", library_ms=k1_b2["library_ms"]),
         dict(K2, route="cuda",
              launches=(k2_train + k2_pt + k2_loop + k2_ploop
-                       + real["real_fcgf"][1] + real["real_predator"][1]),
+                       + real["real_fcgf"][1] + real["real_predator"][1]
+                       + icp["icp"] + icp["icp_loop"][1]
+                       + icp["cal_overlap"]),
              launches_by_path={"train": k2_train, "predator_train": k2_pt,
                                "fcgf_loop": k2_loop,
                                "predator_loop": k2_ploop,
                                "real_fcgf": real["real_fcgf"][1],
-                               "real_predator": real["real_predator"][1]},
+                               "real_predator": real["real_predator"][1],
+                               "icp": icp["icp"],
+                               "icp_fcgf": icp["icp_loop"][1],
+                               "cal_overlap": icp["cal_overlap"]},
              max_abs_err=k2_err, ms=k2_step["ms"],
              plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
              bound_by="operations", library_ms=k2_step["library_ms"],
              predator_train={k: pt_step[k] for k in (
-                 "ms", "plain_ms", "bound_ms", "library_ms")}),
+                 "ms", "plain_ms", "bound_ms", "library_ms")},
+             icp={k: icp["icp_shape"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "ckdtree_query_ms")}),
     ]}
     print("(K1's times: the 7 searches of one eval batch build, one grouped "
           "launch; K2's: the 4 nn_min calls of one FCGF train step, "
-          "partitions included, and under predator_train those of one "
-          "Predator train step)")
+          "partitions included, under predator_train those of one "
+          "Predator train step, under icp one ICP search of phase 21)")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps(record))

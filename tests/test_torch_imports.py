@@ -53,7 +53,15 @@ def test_every_module_imports_without_jax_or_the_reference():
             "apr_torch.data.modelnet", "apr_torch.geometry.rotation",
             "apr_torch.models.simpleunet", "apr_torch.import_checkpoint",
             "apr_torch.scripts.test_apr",
-            "apr_torch.scripts.test_fcgf"} <= set(res["modules"])
+            "apr_torch.scripts.test_fcgf", "apr_torch.geometry.icp",
+            "apr_torch.geometry.pose_graph", "apr_torch.data.multiway",
+            "apr_torch.tools.prepare_icp_cache", "apr_torch.tools.cal_overlap",
+            "apr_torch.utils.pointcloud", "apr_torch.utils.misc",
+            "apr_torch.utils.trajectory", "apr_torch.utils.files",
+            "apr_torch.utils.logging_utils", "apr_torch.utils.ply",
+            "apr_torch.utils.transforms", "apr_torch.utils.visualization",
+            "apr_torch.eval.benchmark3dmatch",
+            "apr_torch.registration.benchmark_utils"} <= set(res["modules"])
     assert len(res["modules"]) == len(list(pkgutil.walk_packages(
         apr_torch.__path__, "apr_torch."))) + 1
 
@@ -95,7 +103,38 @@ def _entry_points():
         return config.replace(dataset="synthetic", max_epoch=0,
                               out_dir=tempfile.mkdtemp())
 
+    from apr_torch.data.multiway import _voxel_dedup, \
+        multiway_complement_transforms
+    from apr_torch.geometry.icp import information_matrix, registration_icp
+    from apr_torch.tools import cal_overlap, prepare_icp_cache
+    from apr_torch.utils.pointcloud import compute_overlap_ratio, \
+        evaluate_feature_match, get_matching_indices
+
+    cloud = np.random.default_rng(0).uniform(-1, 1, (20, 3))
+    empty = tempfile.mkdtemp()
+
+    def tool(main, argv):
+        return lambda device="cuda": main(argv + ["--device", device])
+
     return {
+        "registration_icp": lambda **kw: registration_icp(
+            cloud, cloud, 0.2, **kw),
+        "information_matrix": lambda **kw: information_matrix(
+            cloud, cloud, 0.2, np.eye(4), **kw),
+        "multiway_complement_transforms": lambda **kw:
+            multiway_complement_transforms(
+                cloud, [cloud, cloud], [np.eye(4)] * 2, 1, **kw),
+        "_voxel_dedup": lambda **kw: _voxel_dedup(cloud, 0.05, **kw),
+        "compute_overlap_ratio": lambda **kw: compute_overlap_ratio(
+            cloud, cloud, np.eye(4), 0.1, **kw),
+        "get_matching_indices": lambda **kw: get_matching_indices(
+            cloud, cloud, np.eye(4), 0.1, **kw),
+        "evaluate_feature_match": lambda **kw: evaluate_feature_match(
+            cloud, cloud, cloud, cloud, np.eye(4), **kw),
+        "prepare_icp_cache": tool(prepare_icp_cache.main,
+                                  ["--kitti_root", empty]),
+        "cal_overlap": tool(cal_overlap.main, [
+            "--dir", empty, "--out", os.path.join(empty, "overlaps.txt")]),
         "PredatorTrainer": lambda **kw: PredatorTrainer(kp_cfg, **kw),
         "PredatorTester": lambda **kw: PredatorTester(kp_cfg, None, **kw),
         "make_kp_pair_batch": lambda **kw: make_kp_pair_batch(
@@ -132,7 +171,13 @@ def _entry_points():
                                   "PredatorTester", "make_kp_pair_batch",
                                   "calibrate_neighbors", "get_trainer",
                                   "run_training", "run_predator_training",
-                                  "PairLoader", "collate_raw"])
+                                  "PairLoader", "collate_raw",
+                                  "registration_icp", "information_matrix",
+                                  "multiway_complement_transforms",
+                                  "_voxel_dedup", "compute_overlap_ratio",
+                                  "get_matching_indices",
+                                  "evaluate_feature_match",
+                                  "prepare_icp_cache", "cal_overlap"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card, an entry point given no device raises; device='cpu'
     runs."""
