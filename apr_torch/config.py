@@ -164,11 +164,14 @@ class APRConfig:
     profile_steps: int = 3
 
     # --- parallel ---
-    num_devices: Optional[int] = None  # more than one: ROADMAP D3
+    # data parallel over the first num_devices ranks of the process group
+    # (one process per device; None: every rank of a launched group)
+    num_devices: Optional[int] = None
     # build batch i+1 in the same loop iteration as batch i's step (the
     # loop's fused path; bitwise the same as the separate one)
     fused_build: bool = False
-    mesh_n_builders: int = 0           # builder / trainer split: ROADMAP D3
+    # the last mesh_n_builders ranks build batches while the others train
+    mesh_n_builders: int = 0
 
     def replace(self, **kw) -> "APRConfig":
         """A copy with ``kw`` applied; lists become tuples."""

@@ -122,12 +122,20 @@ def collate_pairs(pairs: Sequence[dict], config: APRConfig,
 class PairLoader:
     """Iterates built :class:`PairBatch` es (or, with ``raw``, the nine
     collated arrays for the loop's fused build) with background prefetch.
-    Each epoch's order is a permutation drawn from ``seed + epoch``."""
+    Each epoch's order is a permutation drawn from ``seed + epoch``.
+
+    With a data-parallel ``mesh`` each batch is this rank's slice of the
+    global one.  Every rank still reads every pair of the global batch, in
+    the global order: the datasets draw their augmentations from a
+    generator advanced per ``get_pair`` (and the walks reseed numpy's
+    global one), so a rank that read only its own pairs would draw other
+    numbers than the one-process loader.  The ranks' slices together are
+    that loader's batch, bit for bit."""
 
     def __init__(self, dataset: PairDataset, config: APRConfig,
                  batch_size: Optional[int] = None, shuffle: bool = True,
                  seed: int = 0, prefetch: int = 2, drop_last: bool = True,
-                 raw: bool = False, device="cuda"):
+                 raw: bool = False, device="cuda", mesh=None):
         self.dataset = dataset
         self.config = config
         self.batch_size = batch_size or config.batch_size
@@ -137,6 +145,10 @@ class PairLoader:
         self.drop_last = drop_last
         self.raw = raw
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and self.batch_size % mesh.size:
+            raise ValueError(f"a batch of {self.batch_size} does not divide "
+                             f"into {mesh.size} shards")
         # capacity-tier batching (config.train_capacity_buckets) groups
         # each epoch's pairs into occupancy tiers, for built batches only
         self.bucket_tiers = 0 if raw else int(
@@ -158,6 +170,15 @@ class PairLoader:
                                          ).permutation(n)
         return np.arange(n)
 
+    def _mine(self, pairs):
+        """This rank's slice of a global batch's pairs; a ragged last
+        batch (``drop_last`` off) that does not divide the mesh stays
+        whole, for every rank to run alone."""
+        if self.mesh is None or len(pairs) % self.mesh.size:
+            return pairs
+        k = len(pairs) // self.mesh.size
+        return pairs[self.mesh.rank * k:(self.mesh.rank + 1) * k]
+
     def __iter__(self) -> Iterator:
         order = self._index_order()
         if self.bucket_tiers:
@@ -166,7 +187,8 @@ class PairLoader:
 
         def build(b):
             idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
-            pairs = [self.dataset.get_pair(int(i)) for i in idxs]
+            pairs = self._mine([self.dataset.get_pair(int(i))
+                                for i in idxs])
             if self.raw:
                 return collate_raw(pairs, self.config, self.device)
             return collate_pairs(pairs, self.config, device=self.device)
@@ -204,7 +226,7 @@ class PairLoader:
 
         def build(item):
             (pc, caps), pairs = item
-            return collate_pairs(pairs, c, point_capacity=pc,
+            return collate_pairs(self._mine(pairs), c, point_capacity=pc,
                                  capacities=caps, device=self.device)
 
         yield from prefetched(tiered_batches(), build, self.prefetch,

@@ -115,6 +115,11 @@ class PredatorTester(FeatureTester):
             neighbor_limits=tuple(c.neighborhood_limits),
             overlap_radius=c.overlap_radius, device=self.device)
 
+    def _sharded_groups(self, pairs, d: int):
+        """Consecutive groups of ``d`` pairs at the config's capacities
+        (the reference's Predator fan-out takes no tiers)."""
+        return [({}, pairs[g:g + d]) for g in range(0, len(pairs), d)]
+
     def _bucketed_batch(self, pair):
         """KP-flavour occupancy bucketing: the level-0 grid is
         ``first_subsampling_dl`` and the tiers halve ``kp_capacities``."""

@@ -184,6 +184,72 @@ class FeatureTester:
         stats.success.append(rte < c.rte_thresh and rre < c.rre_thresh)
         stats.fitness.append(float(fitness))
 
+    def _sharded_groups(self, pairs, d: int):
+        """Tier-aware grouping (config.test_capacity_buckets): runs of
+        consecutive same-tier pairs form groups of at most ``d``, in input
+        order, so every group builds at its own capacities (at worst extra
+        padded tail groups at tier boundaries); (batch keywords, pairs)
+        per group."""
+        c = self.config
+        groups = []
+        for pair in pairs:
+            if c.test_capacity_buckets:
+                from apr_torch.eval.bucketing import bucket_for_pair
+
+                tier = bucket_for_pair(pair, c.voxel_size, c.capacities,
+                                       c.point_capacity,
+                                       max_tiers=c.test_capacity_buckets)
+            else:
+                tier = (c.point_capacity, tuple(c.capacities))
+            if groups and groups[-1][0] == tier and len(groups[-1][1]) < d:
+                groups[-1][1].append(pair)
+            else:
+                groups.append((tier, [pair]))
+        return [(dict(point_capacity=pc, capacities=caps), group)
+                for (pc, caps), group in groups]
+
+    def test_sharded(self, pairs, mesh=None, seed: int = 0) -> TestStats:
+        """Multi-device eval fan-out: groups of ``mesh.size`` pairs, each
+        rank evaluating its pair of every group (rank r the r-th), the
+        results gathered to every rank (the same stats on each).  A tail
+        group is padded by repeating its last pair and only its real pairs
+        are kept.  Each group takes one draw from the ``seed``'s generator
+        and gives pair i its own generator
+        (:func:`apr_torch.parallel.mesh.pair_generators`).
+        ``sec_per_pair`` leaves out the first group (kernel builds and
+        warm-up).  Without a mesh, the launcher's group (or a world of
+        one) on the tester's device."""
+        from apr_torch.parallel.collectives import all_gather_cat
+        from apr_torch.parallel.mesh import make_mesh, pair_generators
+
+        c = self.config
+        mesh = mesh or make_mesh(self.device)
+        d = mesh.size
+        stats = TestStats()
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        t0, n_timed = None, 0
+        for kw, group in self._sharded_groups(list(pairs), d):
+            n_real = len(group)
+            group = group + [group[-1]] * (d - n_real)
+            gens = pair_generators(gen, d)
+            _, rte, rre, fitness = self.step(
+                self._pair_to_batch(group[mesh.rank], **kw),
+                gens[mesh.rank])
+            res = all_gather_cat(torch.stack(
+                [rte, rre, fitness]).float()[None].clone(), mesh).cpu()
+            if t0 is None:
+                t0 = time.time()    # the first group pays the warm-up
+            else:
+                n_timed += n_real
+            for i in range(n_real):
+                self._record(stats, *res[i].tolist())
+                stats.pair_dist.append(
+                    float(np.linalg.norm(group[i]["t_gt"][:3, 3])))
+        if t0 is not None and n_timed:
+            stats.sec_per_pair.extend([(time.time() - t0) / n_timed]
+                                      * n_timed)
+        return stats
+
     def test(self, pairs: Iterable[dict], seed: int = 0,
              log_freq: int = 10, pipelined: bool = True) -> TestStats:
         """Evaluate all pairs.

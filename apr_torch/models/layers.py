@@ -12,15 +12,28 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from apr_torch.parallel.collectives import all_reduce_sum
 
-def masked_moments(x: torch.Tensor, mask: torch.Tensor, dims):
+
+def masked_moments(x: torch.Tensor, mask: torch.Tensor, dims, mesh=None):
     """Mean and variance of x [..., C] over ``dims``, counting only rows
-    where ``mask`` (x's shape without C) is True."""
+    where ``mask`` (x's shape without C) is True.
+
+    Under a data-parallel ``mesh`` the moments are those of every rank's
+    rows together, in two all-reduces: the masked sum with its count, then
+    the centred squared sum (the same two-pass variance)."""
     w = mask.to(x.dtype)[..., None]
-    n = torch.clamp(w.sum(dim=dims), min=1.0)
-    n_k = torch.clamp(w.sum(dim=dims, keepdim=True), min=1.0)
-    mean_k = (x * w).sum(dim=dims, keepdim=True) / n_k
-    var = (torch.square(x - mean_k) * w).sum(dim=dims) / n
+    total = (x * w).sum(dim=dims, keepdim=True)
+    count = w.sum(dim=dims, keepdim=True)
+    if mesh is not None:
+        both = all_reduce_sum(torch.cat([total, count], -1), mesh)
+        total, count = both[..., :-1], both[..., -1:]
+    n_k = torch.clamp(count, min=1.0)
+    mean_k = total / n_k
+    sq = (torch.square(x - mean_k) * w).sum(dim=dims)
+    if mesh is not None:
+        sq = all_reduce_sum(sq, mesh)
+    var = sq / n_k.squeeze(tuple(dims))
     return mean_k.reshape(var.shape), var
 
 
@@ -34,6 +47,13 @@ class MaskedBatchNorm(nn.Module):
     interleaved stat groups (row i in group i % G): per-group moments and
     normalisation, and the momentum updates applied group after group, as
     G sequential forwards of the ungrouped norm would (the pair fold).
+
+    ``mesh`` (None by default; set by a data-parallel trainer) makes the
+    train-mode moments global: those of every rank's rows, so the
+    normalisation and the running stats are the one-device ones of the
+    whole batch, equal on every rank.  ``stats_groups`` stays per group:
+    the fold interleaves the two sides of each pair, and a rank holds both
+    sides of its own pairs.
     """
 
     def __init__(self, channels: int, momentum: float = 0.1,
@@ -45,6 +65,7 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.mesh = None
 
     @torch.no_grad()
     def _update(self, means, variances) -> None:
@@ -63,7 +84,8 @@ class MaskedBatchNorm(nn.Module):
             x = x.reshape((x.shape[0] // g, g) + x.shape[1:])
             mg = mask.reshape((mask.shape[0] // g, g) + mask.shape[1:])
             mean, var = masked_moments(
-                x, mg, (0,) + tuple(range(2, x.dim() - 1)))     # [g, C]
+                x, mg, (0,) + tuple(range(2, x.dim() - 1)),
+                self.mesh)                                      # [g, C]
             self._update(mean.detach(), var.detach())
             shape = (1, g) + (1,) * (x.dim() - 3) + (c,)
             mean, var = mean.reshape(shape), var.reshape(shape)

@@ -240,17 +240,26 @@ nn_min.launches = 0
 def directed_backward(queries, supports, resolved, idx, nq, g):
     """Gradients of a per-cloud masked mean of NN squared distances: the
     argmin support is re-gathered (no distance tile is saved) and the
-    support side is a scatter-add.  ``resolved`` [B, Nq] marks the queries
-    that carry gradient, ``nq`` [B] the per-cloud divisors, ``g`` [B]."""
+    support side sums each support's queries.  ``resolved`` [B, Nq] marks
+    the queries that carry gradient, ``nq`` [B] the per-cloud divisors,
+    ``g`` [B].
+
+    The support side is a segment sum over the queries sorted stably by
+    their support, each support's queries added in query order: no float
+    atomics (``index_add_`` on the card adds in whatever order its threads
+    land, so two runs of a train step would differ in the last bits)."""
     b, n_s = supports.shape[:2]
     safe = idx.clamp(0, max(n_s - 1, 0)).long()
     nn_pts = torch.gather(supports, 1, safe[..., None].expand(-1, -1, 3))
     diff = torch.where(resolved[..., None], queries - nn_pts, 0.0)
     dq = (2.0 * g / nq)[:, None, None] * diff
     offs = torch.arange(b, device=idx.device)[:, None] * n_s
-    ds = torch.zeros((b * n_s, 3), dtype=supports.dtype,
-                     device=supports.device)
-    ds.index_add_(0, (safe + offs).reshape(-1), -dq.reshape(-1, 3))
+    target = (safe + offs).reshape(-1)
+    order = torch.argsort(target, stable=True)
+    counts = torch.zeros(b * n_s, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, target, torch.ones_like(target))
+    ds = torch.segment_reduce(-dq.reshape(-1, 3)[order], "sum",
+                              lengths=counts, axis=0)
     return dq, ds.reshape(b, n_s, 3)
 
 

@@ -18,6 +18,14 @@ cloud 0's call into cloud 1's) or, with ``symmetric``, the
 modules plus the optimizer, updated in place, with the same gradient
 accumulation (:mod:`apr_torch.training.train_state`), and a step whose loss
 or a gradient is not finite changes nothing.
+
+The grouped steps run data parallel under a mesh
+(:meth:`PredatorTrainer.use_mesh`), as the reference's vmapped group
+sharded over its mesh: each rank holds its pairs of the group (one in the
+loop) with their per-pair draws, and the weighted sums of the losses, the
+running stats, the metrics and the gradients are summed over the mesh.
+The per-pair loss couples no pairs (the reference vmaps it), so the
+norms keep their per-pair moments.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from apr_torch.models.kpconv import KPPyramid, build_kp_pyramid, \
 from apr_torch.models.kpfcnn import KPFCNN, KPFCNNDecoder
 from apr_torch.models.mlp import make_generative_mlp
 from apr_torch.ops.voxelize import dedup_points
+from apr_torch.parallel.collectives import all_reduce_
+from apr_torch.parallel.mesh import pair_generators
 from apr_torch.registration.matching import gt_correspondences
 from apr_torch.training.train_state import TrainerState
 
@@ -297,20 +307,31 @@ class PredatorTrainer(TrainerState):
         """The group's loss: the ``pair_weights``-weighted sum (uniform by
         default; a zero weight drops a padding pair) of the pairs' losses,
         and the weighted means of their metrics.  Every pair starts from
-        the same running stats.  In train mode each pair's weighted loss is
-        back-propagated as it is computed (gradients accumulate), and the
-        running stats end at the weighted mean of the pairs' updates."""
+        the same running stats and draws from its own generator
+        (:func:`apr_torch.parallel.mesh.pair_generators`).  In train mode
+        each pair's weighted loss is back-propagated as it is computed
+        (gradients accumulate), and the running stats end at the weighted
+        mean of the pairs' updates.
+
+        Under a mesh, ``batch`` holds this rank's pairs of the group (one
+        per rank in the loop), ``pair_weights`` the whole group's weights;
+        the weighted sums of losses, running stats and metrics are summed
+        over the mesh (the gated update sums the gradients)."""
+        mesh = self.mesh
         b = batch.t_gt.shape[0]
-        w = (torch.full((b,), 1.0 / b, device=self.device)
+        size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        w = (torch.full((b * size,), 1.0 / (b * size), device=self.device)
              if pair_weights is None else torch.as_tensor(
                  pair_weights, dtype=torch.float32, device=self.device))
+        w = w[rank * b:(rank + 1) * b]
+        gens = pair_generators(generator, b * size)[rank * b:(rank + 1) * b]
         start = [x.clone() for x in self.buffers()] if train else []
         ends, losses, metrics = [], [], []
         for i in range(b):
             with torch.no_grad():
                 for x, old in zip(self.buffers(), start):
                     x.copy_(old)
-            loss, m = self.loss_fn(select_pair(batch, i), generator,
+            loss, m = self.loss_fn(select_pair(batch, i), gens[i],
                                    w_saliency, train)
             if train:
                 (loss * w[i]).backward()
@@ -319,10 +340,17 @@ class PredatorTrainer(TrainerState):
             metrics.append(m)
         with torch.no_grad():
             for k, x in enumerate(self.buffers() if train else []):
-                x.copy_(sum(w[i] * ends[i][k] for i in range(b)))
-        return (sum(w[i] * losses[i] for i in range(b)),
-                {k: sum(w[i] * m[k] for i, m in enumerate(metrics))
-                 for k in metrics[0]})
+                end = sum(w[i] * ends[i][k] for i in range(b))
+                x.copy_(end if mesh is None else all_reduce_(end, mesh))
+        loss = sum(w[i] * losses[i] for i in range(b))
+        metrics = {k: sum(w[i] * m[k] for i, m in enumerate(metrics))
+                   for k in metrics[0]}
+        if mesh is not None:
+            names = sorted(metrics)
+            flat = all_reduce_(torch.stack([loss] + [metrics[k].float()
+                                                     for k in names]), mesh)
+            loss, metrics = flat[0], dict(zip(names, flat[1:]))
+        return loss, metrics
 
     # --- the train steps ------------------------------------------------
 
@@ -335,7 +363,7 @@ class PredatorTrainer(TrainerState):
         self.optimizer.zero_grad(set_to_none=False)
         loss, metrics = self.loss_fn(batch, generator, w_saliency, True)
         loss.backward()
-        return self._gated_update(loss, saved, metrics)
+        return self._gated_update(loss, saved, metrics, sharded=False)
 
     def train_step_batched(self, batch: KPPairBatch,
                            generator: Optional[torch.Generator] = None,

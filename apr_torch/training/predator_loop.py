@@ -1,5 +1,4 @@
-"""The Predator training loop (port of ``apr_tpu/training/predator_loop.py``
-on one device).
+"""The Predator training loop (port of ``apr_tpu/training/predator_loop.py``).
 
 Per epoch: iterate the pairs in an order drawn from
 ``np.random.default_rng(seed)``, train, validate with the circle-loss and
@@ -10,12 +9,17 @@ reference's trainer.py:370-374).  The latch is applied after the epoch's
 checkpoints, so their meta holds the weight the epoch trained with, as the
 reference's do.
 
-The reference stacks one pair per mesh device into a group; on one device a
-group is one pair.  ``_group_iter`` still forms groups of any size: a
-ragged tail is padded by repeating its last pair, and the loop weights the
-padding pairs 0.  With ``fused_build`` each iteration steps on the carried
-group and then builds the next one; the last carried group is stepped
-after the loader ends, with no build.
+The reference stacks one pair per mesh device into a group; here a group
+is one pair per rank of the data-parallel mesh (``num_devices`` > 1, or the
+launcher's process group), and one pair on one device.  Every rank's
+``_group_iter`` reads every pair of each group, in order (the datasets'
+draws advance per read), and keeps its own; a ragged tail is padded by
+repeating its last pair, and the loop weights the padding pairs 0.
+Validation runs the full groups sharded and the ragged tail pair by pair
+on every rank.  Rank 0 alone writes files, each followed by a barrier.
+With ``fused_build`` each iteration steps on the carried group and then
+builds the next one; the last carried group is stepped after the loader
+ends, with no build.
 """
 
 from __future__ import annotations
@@ -34,7 +38,9 @@ from apr_torch.data.pipeline import prefetched
 from apr_torch.data.synthetic import pad_points
 from apr_torch.device import resolve_device
 from apr_torch.training.checkpoints import CheckpointManager
-from apr_torch.training.loop import Meters, MetricsLogger, check_one_device
+from apr_torch.parallel.mesh import replicate
+from apr_torch.training.loop import Meters, MetricsLogger, RankZero, \
+    world_mesh
 from apr_torch.training.predator import KPPairBatch, PredatorTrainer, \
     make_kp_pair_batch
 from apr_torch.utils.timer import Timer
@@ -84,12 +90,13 @@ def pair_weights(n_real: int, group: int, device) -> torch.Tensor:
 
 def _group_iter(dataset, indices, config: APRConfig, group: int,
                 prefetch: int = 2, pad_tail: bool = True, raw: bool = False,
-                device="cuda"):
+                device="cuda", mesh=None):
     """``group``-pair batches built by a background thread ahead of the
     consumer: (a group :class:`KPPairBatch`, n_real), or with ``raw`` the
     nine stacked [group, ...] arrays on the device for the fused build.  A
     ragged tail group repeats its last pair (or, without ``pad_tail``, is
-    dropped)."""
+    dropped).  With a ``mesh`` every rank reads every pair of a group and
+    keeps its own slice of it."""
     indices = list(indices)
     groups = [indices[i:i + group] for i in range(0, len(indices), group)]
     if groups and not pad_tail and len(groups[-1]) < group:
@@ -98,14 +105,16 @@ def _group_iter(dataset, indices, config: APRConfig, group: int,
     def build(idxs):
         n_real = len(idxs)
         idxs = list(idxs) + [idxs[-1]] * (group - len(idxs))
+        pairs = [dataset.get_pair(int(i)) for i in idxs]
+        if mesh is not None:
+            k = group // mesh.size
+            pairs = pairs[mesh.rank * k:(mesh.rank + 1) * k]
         if raw:
-            per_raw = [pair_to_raw(dataset.get_pair(int(i)), config)
-                       for i in idxs]
+            per_raw = [pair_to_raw(p, config) for p in pairs]
             return tuple(torch.as_tensor(np.stack(col), device=device)
                          for col in zip(*per_raw)), n_real
-        return stack_trees([pair_to_kp_batch(dataset.get_pair(int(i)),
-                                             config, device)
-                            for i in idxs]), n_real
+        return stack_trees([pair_to_kp_batch(p, config, device)
+                            for p in pairs]), n_real
 
     yield from prefetched(groups, build, prefetch, device)
 
@@ -113,13 +122,17 @@ def _group_iter(dataset, indices, config: APRConfig, group: int,
 def run_predator_training(config: APRConfig,
                           max_epochs: Optional[int] = None,
                           device="cuda") -> Dict:
-    """Train per ``config`` on ``device``; returns the summary: the last
-    val means, the last epoch's step timer average, training wall seconds
-    and steps, the best circle loss and recall, the saliency weight and
-    the step count."""
+    """Train per ``config`` on ``device`` (on several devices, this rank's
+    share); returns the summary: the last val means, the last epoch's step
+    timer average, training wall seconds and steps, the best circle loss
+    and recall, the saliency weight and the step count."""
     dev = resolve_device(device)
-    check_one_device(config)
-    os.makedirs(config.out_dir, exist_ok=True)
+    world = world_mesh(config, dev)
+    if world is not None:
+        dev = world.device
+    out = RankZero(world)
+    if out.writes:
+        os.makedirs(config.out_dir, exist_ok=True)
 
     # neighbourhood calibration (reference Predator_APR/main.py:94-111):
     # when the config does not pin the limits, histogram the train set and
@@ -131,14 +144,26 @@ def run_predator_training(config: APRConfig,
         limits = calibrate_neighbors(train_ds, config, device=dev)
         log.info("calibrated neighborhood_limits: %s", limits)
         config.neighborhood_limits = limits
-    config.save_json(os.path.join(config.out_dir, "config.json"))
+    if out.writes:
+        config.save_json(os.path.join(config.out_dir, "config.json"))
+    out.done()
 
     trainer = PredatorTrainer(config, device=dev, seed=config.seed)
     val_ds = make_dataset(config, "val")
-    group = 1
+    group, mesh = 1, None
+    if world is not None:
+        n = min(config.num_devices or world.size, world.size)
+        mesh = world if n == world.size else world.split(world.ranks[:n])
+        if not mesh.member:
+            log.info("rank %d is outside the %d-device mesh: no step",
+                     world.rank, n)
+            return {"steps": 0}
+        trainer.use_mesh(mesh)
+        group = mesh.size
+        out = RankZero(mesh)
 
-    mngr = CheckpointManager(config.out_dir)
-    metrics_log = MetricsLogger(config.out_dir)
+    mngr = CheckpointManager(config.out_dir) if out.writes else None
+    metrics_log = MetricsLogger(config.out_dir) if out.writes else None
 
     start_epoch = 0
     w_saliency = float(config.w_saliency_loss)
@@ -151,6 +176,8 @@ def run_predator_training(config: APRConfig,
             w_saliency = float(meta.get("w_saliency", w_saliency))
             best_loss = float(meta.get("best_loss", best_loss))
             best_recall = float(meta.get("best_recall", best_recall))
+    if mesh is not None and config.resume:
+        replicate(trainer, mesh)      # rank 0's restore on every rank
 
     gen = torch.Generator(device=dev).manual_seed(config.seed)
     epochs = max_epochs or config.max_epoch
@@ -169,7 +196,7 @@ def run_predator_training(config: APRConfig,
         for batch, n_real in _group_iter(train_ds, order, config, group,
                                          raw=fused,
                                          pad_tail=len(train_ds) <= group,
-                                         device=dev):
+                                         device=dev, mesh=mesh):
             pw = pair_weights(n_real, group, dev)
             if fused and built is None:
                 built, built_pw = trainer.build_batch_group(batch), pw
@@ -187,7 +214,8 @@ def run_predator_training(config: APRConfig,
             if step % config.stat_freq == 0 and meters.meters:
                 scalars = meters.means()
                 scalars["step_time"] = timer.avg
-                metrics_log.write("train", step, scalars)
+                if out.writes:
+                    metrics_log.write("train", step, scalars)
                 log.info("epoch %d step %d loss %.4f (%.2fs/it)", epoch,
                          step, scalars["loss"], timer.avg)
         if built is not None:
@@ -198,7 +226,7 @@ def run_predator_training(config: APRConfig,
             timer.toc()
             step += 1
         meters.defer(None)    # waits for the last step
-        if meters.meters:
+        if meters.meters and out.writes:
             metrics_log.write("train_epoch", epoch, meters.means())
         summary.update(step_time=timer.avg,
                        train_seconds=time.perf_counter() - t_train,
@@ -209,7 +237,7 @@ def run_predator_training(config: APRConfig,
         vmeters = Meters()
         n_full = (len(val_ds) // group) * group
         for batch, _ in _group_iter(val_ds, range(n_full), config, group,
-                                    device=dev):
+                                    device=dev, mesh=mesh):
             vmeters.update(trainer.valid_step_batched(batch, gen,
                                                       w_saliency))
         for i in range(n_full, len(val_ds)):
@@ -217,7 +245,8 @@ def run_predator_training(config: APRConfig,
                 pair_to_kp_batch(val_ds.get_pair(i), config, dev), gen,
                 w_saliency))
         vs = vmeters.means()
-        metrics_log.write("val", epoch, vs)
+        if out.writes:
+            metrics_log.write("val", epoch, vs)
         log.info("val epoch %d: %s", epoch,
                  {k: round(v, 4) for k, v in vs.items()})
 
@@ -227,12 +256,17 @@ def run_predator_training(config: APRConfig,
         if vs.get("circle_loss", 1e9) < best_loss:
             best_loss = vs["circle_loss"]
             extra["best_loss"] = best_loss
-            mngr.save(epoch + 1, trainer, extra=extra, tag="best_loss")
+            if out.writes:
+                mngr.save(epoch + 1, trainer, extra=extra, tag="best_loss")
         if vs.get("recall", -1e9) > best_recall:
             best_recall = vs["recall"]
             extra["best_recall"] = best_recall
-            mngr.save(epoch + 1, trainer, extra=extra, tag="best_recall")
-        mngr.save(epoch + 1, trainer, extra=extra)
+            if out.writes:
+                mngr.save(epoch + 1, trainer, extra=extra,
+                          tag="best_recall")
+        if out.writes:
+            mngr.save(epoch + 1, trainer, extra=extra)
+        out.done()
 
         # the saliency latch: one way, and a configured nonzero weight is
         # never lowered

@@ -17,6 +17,13 @@ every_k_schedule=iter_size)`` around the optimizer:
 - a mini-step whose loss or a gradient is not finite changes nothing: not
   the parameters, the optimizer, the running stats, the mean or the
   mini-step counter.
+
+Under a data-parallel mesh (:meth:`TrainerState.use_mesh`) each rank's
+gradients are its share of the global loss's: the gated update sums them
+over the mesh (one flat buffer per dtype), judges finiteness on the global
+loss and the summed gradients with a MIN over the mesh, so every rank
+steps or skips together and restores the same running stats, and the
+accumulation folds in the summed gradients.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
+
+from apr_torch.parallel.collectives import all_reduce_, all_reduce_flat_
+from apr_torch.parallel.mesh import replicate
 
 
 class GradientAccumulation:
@@ -78,6 +88,15 @@ class TrainerState:
     :class:`apr_torch.training.predator.PredatorTrainer`.  A trainer
     provides ``config``, ``modules()`` and ``_make_optimizer()``."""
 
+    mesh = None
+
+    def use_mesh(self, mesh) -> None:
+        """Train data parallel over ``mesh``: the state is replicated from
+        the mesh's first member and the gated update sums the gradients
+        over the mesh.  Every member must call it."""
+        self.mesh = mesh
+        replicate(self, mesh)
+
     def parameters(self) -> List[torch.nn.Parameter]:
         """The trainable parameters (frozen ones, such as KPConv's kernel
         points, stay out of the optimizer and its weight decay)."""
@@ -115,19 +134,28 @@ class TrainerState:
         return lr
 
     def _gated_update(self, loss: torch.Tensor, saved: List[torch.Tensor],
-                      metrics: Dict[str, torch.Tensor]
+                      metrics: Dict[str, torch.Tensor], sharded: bool = True
                       ) -> Dict[str, torch.Tensor]:
         """The (accumulated) optimizer step unless the loss or a gradient
         is not finite: then parameters, optimizer, accumulation and running
         stats (restored from ``saved``) stay as they were.  Trainable
         parameters that got no gradient get a zero one, so weight decay
-        still reaches them.  ``step`` counts the call either way."""
+        still reaches them.  ``step`` counts the call either way.  Under a
+        mesh (and ``sharded``: each rank's gradients are its share) the
+        gradients are summed over the mesh first and ``loss`` is the
+        global loss."""
         params = self.parameters()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mesh = self.mesh if sharded else None
+        if mesh is not None:
+            all_reduce_flat_([p.grad for p in params], mesh)
         finite = torch.isfinite(loss) & torch.stack(
             [torch.isfinite(p.grad).all() for p in params]).all()
+        if mesh is not None:
+            flag = finite.to(torch.int32).reshape(1)
+            finite = all_reduce_(flag, mesh, op="min", kind="finite")[0] > 0
         if bool(finite):
             self.accumulation.step(params, self.optimizer)
         else:

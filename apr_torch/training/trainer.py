@@ -10,6 +10,32 @@ The train state is the modules plus the optimizer, updated in place
 eagerly (no jit).  Both clouds of every pair are encoded in one 2B-cloud
 forward; in train mode the norms take per-side statistics
 (``stats_groups=2``), as the reference's two sequential forwards do.
+
+Data parallel (:meth:`FCGFTrainer.use_mesh`).  Under the reference's mesh
+an R-device step is the one-device step on the whole batch, and the batch
+couples its pairs in three places: the batch norms' moments, the
+contrastive loss's draws over the concatenated clouds, and the finite
+gate.  Here rank r holds b = B / R pairs and its own slice of every batch
+array, and:
+
+- the batch norms take global moments (``MaskedBatchNorm.mesh``);
+- f0, f1, the masks and the correspondences are gathered into the global
+  batch, and every rank computes the same contrastive term C over it,
+  from the same generator state, so the draws are the global draws;
+- the generative branch runs on the rank's own clouds: G_r, the sum of
+  its clouds' (chamfer + reg) * loss_ratio.
+
+The global loss is L = C + sum_r G_r.  Rank r back-propagates its local
+loss L_r = C + G_r.  The gather's backward keeps rank r's slice of dC/dF,
+so L_r's backward gives dC/dtheta through rank r's features only, plus
+dG_r/dtheta; the norms' all-reduce backward sums the moments' gradients
+over the ranks, so each rank's share is exact for the global moments.
+Summing over r: sum_r dL_r/dtheta = dC/dtheta + sum_r dG_r/dtheta =
+dL/dtheta.  So the parameter gradients are all-reduced with SUM (in the
+train state's gated update), and the finite gate judges the global loss
+and the summed gradients, the same on every rank.  The logged loss terms
+are those of the global batch: the per-cloud terms and per-pair metrics
+are gathered and reduced as on one device.
 """
 
 from __future__ import annotations
@@ -25,7 +51,9 @@ from apr_torch.losses.contrastive import contrastive_loss_random_negatives, \
     hardest_contrastive_loss, triplet_loss
 from apr_torch.losses.generative import npr_reconstruction
 from apr_torch.models import load_model
+from apr_torch.models.layers import MaskedBatchNorm
 from apr_torch.models.mlp import make_generative_mlp
+from apr_torch.parallel.collectives import all_gather_cat, gather_batch
 from apr_torch.registration.matching import feature_nn_correspondences
 from apr_torch.registration.metrics import hit_ratio, registration_errors
 from apr_torch.training.batching import PairBatch, make_pair_batch
@@ -67,6 +95,7 @@ class FCGFTrainer(TrainerState):
         self.device = resolve_device(device)
         self.generative = config.trainer == "GenerativePairTrainer"
         self.symmetric = bool(config.symmetric) and self.generative
+        self.mesh = None
         self.init_state(seed)
 
     # --- construction / state -------------------------------------------
@@ -107,6 +136,17 @@ class FCGFTrainer(TrainerState):
 
     def modules(self) -> List[torch.nn.Module]:
         return [m for m in (self.encoder, self.generator) if m is not None]
+
+    def use_mesh(self, mesh) -> None:
+        """Train data parallel over ``mesh`` (see the module docstring):
+        the batch norms take global moments, the state is replicated from
+        the mesh's first member, and the steps expect this rank's slice of
+        each batch.  Every member must call it."""
+        super().use_mesh(mesh)
+        for m in self.modules():
+            for sub in m.modules():
+                if isinstance(sub, MaskedBatchNorm):
+                    sub.mesh = mesh
 
     def _make_optimizer(self) -> torch.optim.Optimizer:
         """SGD with momentum or Adam, both with coupled weight decay on
@@ -186,11 +226,11 @@ class FCGFTrainer(TrainerState):
         return loss, torch.zeros((), device=loss.device)
 
     def _generative_branch(self, feats, pyramid, apc, apc_mask, train):
-        """Sum over the batch's clouds of (chamfer + reg * strength) *
-        loss_ratio, with the summed chamfer and reg and the mean clamp
-        fraction; every cloud in one batched call.  The generator is the MLP
-        over (feats, mask) or, symmetric, the ResUNet over (feats,
-        pyramid); train mode updates its running stats in place."""
+        """Per cloud of the batch: (chamfer + reg * strength), chamfer, reg
+        and the clamp fraction, each [B]; every cloud in one batched call.
+        The generator is the MLP over (feats, mask) or, symmetric, the
+        ResUNet over (feats, pyramid); train mode updates its running stats
+        in place."""
         c = self.config
         mask = pyramid.levels[0].mask                  # [B, C0]
         self.generator.train(train)
@@ -207,38 +247,62 @@ class FCGFTrainer(TrainerState):
             reg_strength=c.regularization_strength, alpha=c.alpha,
             chamfer_mode=c.chamfer_mode,
             chamfer_cell_size=c.chamfer_cell_multiplier * c.voxel_size)
-        return (totals.sum() * c.loss_ratio, cds.sum(), regs.sum(),
-                clamps.mean())
+        return totals, cds, regs, clamps
 
     # --- the train step -------------------------------------------------
 
     def loss_fn(self, batch: PairBatch,
                 generator: Optional[torch.Generator] = None,
-                train: bool = True, return_feats: bool = False):
+                train: bool = True, return_feats: bool = False,
+                sharded: bool = True):
         """(loss, metrics) or (loss, metrics, (f0, f1)); train mode
-        updates the running stats of every norm in place."""
+        updates the running stats of every norm in place.
+
+        Under a mesh (and ``sharded``: the batch is this rank's slice) the
+        returned loss is this rank's share L_r = C + G_r, whose gradients
+        sum over the ranks to the global loss's, and the metrics are the
+        global batch's (the module docstring)."""
         c = self.config
+        mesh = self.mesh if sharded else None
+
+        def whole(t):    # the global batch of a per-pair [b, ...] array
+            return t if mesh is None else gather_batch(t, mesh)
+
         f0, f1 = self._encode_pair(batch, train)
-        b, n, ch = f0.shape
-        m0 = batch.pyramid0.levels[0].mask.reshape(-1)
-        m1 = batch.pyramid1.levels[0].mask.reshape(-1)
-        src, tgt, pmask = _flatten_pairs(batch.pos_src, batch.pos_tgt,
-                                         batch.pos_mask, n)
+        g0, g1 = whole(f0), whole(f1)
+        b, n, ch = g0.shape
+        m0 = whole(batch.pyramid0.levels[0].mask).reshape(-1)
+        m1 = whole(batch.pyramid1.levels[0].mask).reshape(-1)
+        src, tgt, pmask = _flatten_pairs(whole(batch.pos_src),
+                                         whole(batch.pos_tgt),
+                                         whole(batch.pos_mask), n)
         pos_loss, neg_loss = self._contrastive(
-            generator, f0.reshape(b * n, ch), f1.reshape(b * n, ch), src,
+            generator, g0.reshape(b * n, ch), g1.reshape(b * n, ch), src,
             tgt, pmask, m0, m1)
         loss = pos_loss + c.neg_weight * neg_loss
         metrics = {"pos_loss": pos_loss, "neg_loss": neg_loss}
         if self.generative:
-            gen0, cd0, reg0, clamp0 = self._generative_branch(
+            side0 = self._generative_branch(
                 f0, batch.pyramid0, batch.apc0, batch.apc0_mask, train)
-            gen1, cd1, reg1, clamp1 = self._generative_branch(
+            side1 = self._generative_branch(
                 f1, batch.pyramid1, batch.apc1, batch.apc1_mask, train)
-            loss = loss + gen0 + gen1
-            metrics.update(chamfer_loss=cd0 + cd1,
-                           regularization_loss=reg0 + reg1,
-                           chamfer_clamp_frac=0.5 * (clamp0 + clamp1))
-        metrics["loss"] = loss
+            # the global batch's terms (the reported ones) from the
+            # gathered per-cloud values; the local ones carry the gradient
+            (t0, cd0, reg0, cl0), (t1, cd1, reg1, cl1) = (
+                [v if mesh is None else all_gather_cat(v.detach(), mesh)
+                 for v in side] for side in (side0, side1))
+            metrics.update(chamfer_loss=cd0.sum() + cd1.sum(),
+                           regularization_loss=reg0.sum() + reg1.sum(),
+                           chamfer_clamp_frac=0.5 * (cl0.mean()
+                                                     + cl1.mean()))
+            total = (loss + t0.sum() * c.loss_ratio
+                     + t1.sum() * c.loss_ratio)
+            if mesh is not None:
+                metrics["loss"] = total
+                total = (loss + side0[0].sum() * c.loss_ratio
+                         + side1[0].sum() * c.loss_ratio)
+            loss = total
+        metrics.setdefault("loss", loss)
         metrics = {k: v.detach() for k, v in metrics.items()}
         if return_feats:
             return loss, metrics, (f0, f1)
@@ -258,7 +322,7 @@ class FCGFTrainer(TrainerState):
         self.optimizer.zero_grad(set_to_none=False)
         loss, metrics = self.loss_fn(batch, generator, train=True)
         loss.backward()
-        return self._gated_update(loss, saved, metrics)
+        return self._gated_update(metrics["loss"], saved, metrics)
 
     def train_step_fused(self, batch: PairBatch, raw_next: Tuple,
                          generator: Optional[torch.Generator] = None
@@ -285,14 +349,18 @@ class FCGFTrainer(TrainerState):
 
     @torch.no_grad()
     def valid_step(self, batch: PairBatch,
-                   generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None,
+                   sharded: bool = True) -> Dict[str, torch.Tensor]:
         """Loss plus matching and registration metrics: feature NN, robust
         IRLS pose, RTE / RRE, hit ratio and feature-match ratio (running
-        stats, no update)."""
+        stats, no update).  Under a mesh, ``sharded`` says the batch is
+        this rank's slice (the metrics are then the global batch's);
+        otherwise every rank runs the whole batch alone."""
         c = self.config
+        mesh = self.mesh if sharded else None
         _, metrics, (f0, f1) = self.loss_fn(batch, generator, train=False,
-                                            return_feats=True)
+                                            return_feats=True,
+                                            sharded=sharded)
         m0 = batch.pyramid0.levels[0].mask
         m1 = batch.pyramid1.levels[0].mask
         hrs, rtes, rres = [], [], []
@@ -307,7 +375,9 @@ class FCGFTrainer(TrainerState):
             rte, rre = registration_errors(t_est, batch.t_gt[i])
             rtes.append(rte)
             rres.append(rre)
-        hrs, rtes, rres = (torch.stack(v) for v in (hrs, rtes, rres))
+        hrs, rtes, rres = (torch.stack(v) if mesh is None
+                           else all_gather_cat(torch.stack(v), mesh)
+                           for v in (hrs, rtes, rres))
         metrics.update(
             hit_ratio=hrs.mean(),
             feat_match_ratio=(hrs > 0.05).float().mean(),

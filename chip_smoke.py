@@ -100,7 +100,21 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    shape exact against its plain version; an FCGF train step through the
    CLI on ``use_old_pose=True`` pairs (1 K1, 4 K2), the baseline loader's
    GT from the cache, ``extract_features`` on one frame (1 K1, card vs
-   CPU) and ``cal_overlap`` on three frames (equal to cKDTree's ratios).
+   CPU) and ``cal_overlap`` on three frames (equal to cKDTree's ratios);
+22. the multi-device paths (one card: NCCL refuses two ranks on one GPU):
+   (a) the FCGF data-parallel step at phase 10's config through
+   ``make_mesh`` on NCCL at world size 1 against the meshless step, bit
+   for bit (loss, running stats, every parameter), and ``python -m
+   apr_torch.dryrun 1``; then two gloo ranks spawned on the card: (b) the
+   same step at B = 2 + 2 against the one-process B = 4 step (loss terms
+   and running stats within 1e-4, each gradient leaf by phase 12's rule, a
+   planted fault caught, the ranks bit for bit, 1 K1 / 4 K2 a rank); (c)
+   the grouped Predator step at kitti.yaml's width, one pair a rank, the
+   second of weight 0, against the one-process group (phase 17's rule, 0
+   K1 / 4 K2 a rank); (d) test_sharded of both testers on 8 pairs against
+   the one-process steps with the same per-pair draws (exact); (e)
+   chamfer_sp on two 65536-point clouds against chamfer_distance; (f) the
+   builder / trainer pipeline (1 + 1) for 3 steps against serial steps.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1023,6 +1037,7 @@ def predator_slice_phase(dev, pairs):
         inference=True, unit="pair")
     if not all(bool(torch.isfinite(v).all()) for v in x):
         raise AssertionError("non-finite raw outputs of one pair")
+    return summ["pairs_per_sec"]
 
 
 def predator_k2_inputs(trainer, batch):
@@ -2469,6 +2484,536 @@ def icp_cache_phase(dev):
     return out
 
 
+# phase 22: the multi-device paths on one card.  NCCL refuses two ranks on
+# one GPU, so NCCL runs at world size 1 and the two-rank checks run gloo
+# with both ranks on cuda:0: they time-slice the card, so their times
+# measure the port's overhead, not scaling
+DP_RANKS = 2
+DP_TIMEOUT = 180          # seconds a collective may wait
+DP_DEADLINE = 900         # seconds the ranks may take together
+CHAMFER_SP_POINTS = 65536
+EVAL_FIELDS = dict(model="ResUNetFatBN", model_n_out=128,
+                   conv1_kernel_size=5, compute_dtype="bfloat16",
+                   voxel_size=0.3, point_capacity=POINT_CAPACITY,
+                   capacities=CAPS, test_subsample=SUBSAMPLE,
+                   test_num_ransac_hypotheses=HYPOTHESES)
+
+
+def readings_of(trainer, metrics):
+    """A train step's readings from the trainer after it (numpy, so they
+    can leave a rank): the metrics, the gradients the optimizer stepped on
+    (summed over the ranks under a mesh), the running stats and the
+    parameters after the step."""
+    def host(t):
+        return t.detach().to("cpu", copy=True).numpy()
+
+    return dict(
+        metrics={n: float(v) for n, v in metrics.items()},
+        grads={f"{type(m).__name__}.{k}": host(
+            torch.zeros_like(p) if p.grad is None else p.grad)
+            for m in trainer.modules() for k, p in m.named_parameters()
+            if p.requires_grad},
+        stats={f"{i}.{n}": host(b) for i, m in enumerate(trainer.modules())
+               for n, b in m.named_buffers()},
+        params={f"{i}.{n}": host(p) for i, m in enumerate(trainer.modules())
+                for n, p in m.named_parameters()})
+
+
+def as_torch(readings):
+    return {k: ({n: torch.from_numpy(v) for n, v in x.items()}
+                if k != "metrics" else x) for k, x in readings.items()}
+
+
+def bitwise_same(a, b, kinds=("metrics", "stats", "params", "grads")):
+    """The names of the readings that differ in any bit."""
+    out = []
+    for kind in kinds:
+        for n, x in a[kind].items():
+            y = b[kind][n]
+            same = (x == y or (np.isnan(x) and np.isnan(y))) \
+                if kind == "metrics" else np.array_equal(x, y, equal_nan=True)
+            if not same:
+                out.append(f"{kind} {n}")
+    return out
+
+
+class Counted:
+    """K1 / K2 launches of the enclosed block (counts set to 0 on entry,
+    read on exit)."""
+
+    def __enter__(self):
+        from apr_torch.ops.distance import nn_min
+        from apr_torch.ops.searchsorted import searchsorted_left
+
+        self.k = (searchsorted_left, nn_min)
+        for f in self.k:
+            f.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.k1, self.k2 = (f.launches for f in self.k)
+
+
+def synced_ms(fn, reps=3):
+    """The median of ``reps`` synchronised calls of ``fn``, in ms."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase22_rank(mesh, job):
+    """One rank of phase 22's gloo world (every rank on cuda:0): the FCGF
+    data-parallel step (its readings, with and without the planted fault,
+    step time and the collectives' split), the Predator grouped step
+    (readings with and without its planted fault), test_sharded of both
+    testers, the sequence-parallel Chamfer and the builder / trainer
+    pipeline; each path's K1 / K2 launches on this rank."""
+    from apr_torch.config import APRConfig
+    from apr_torch.eval import FeatureTester, PredatorTester
+    from apr_torch.parallel import BuilderTrainerPipeline, shard_batch
+    from apr_torch.parallel.chamfer_sp import chamfer_distance_sp
+    from apr_torch.training.predator import PredatorTrainer
+    from apr_torch.training.trainer import FCGFTrainer
+
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"launches": {}}
+    cfg = APRConfig(**job["fields"]["train"])
+
+    def fcgf_step(fault=False, c=cfg):
+        tr = FCGFTrainer(c, device=dev, seed=0)
+        tr.use_mesh(mesh)
+        undo = planted_fault() if fault else (lambda: None)
+        try:
+            with Counted() as n:
+                batch = tr.build_batch(shard_batch(job["raw"], mesh))
+                m = tr.train_step(batch, torch.Generator(dev).manual_seed(5))
+        finally:
+            undo()
+        return tr, batch, m, n
+
+    tr, batch, m, n = fcgf_step()
+    out["launches"]["dp_fcgf"] = (n.k1, n.k2)
+    out["fcgf_bf16"] = readings_of(tr, m)
+    gen = torch.Generator(dev).manual_seed(8)
+    out["fcgf_step_ms"] = synced_ms(lambda: tr.train_step(batch, gen))
+    mesh.timings = {}
+    out["fcgf_split_ms"] = synced_ms(lambda: tr.train_step(batch, gen), 1)
+    out["fcgf_split"] = {k: v * 1e3 for k, v in mesh.timings.items()}
+    mesh.timings = None
+    del tr, batch
+    f32 = APRConfig(**job["fields"]["train_f32"])
+    out["fcgf"] = readings_of(*fcgf_step(c=f32)[::2])
+    out["fcgf_faulted"] = readings_of(*fcgf_step(fault=True, c=f32)[::2])
+
+    pcfg = APRConfig(**job["fields"]["predator_train"])
+
+    def predator_step(fault=False):
+        tr = PredatorTrainer(pcfg, device=dev, seed=0)
+        tr.use_mesh(mesh)
+        undo = planted_cross_attention_fault() if fault else (lambda: None)
+        try:
+            with Counted() as n:
+                batch = tr.build_batch_group(shard_batch(job["pt_raw"],
+                                                         mesh))
+                m = tr.train_step_batched(
+                    batch, torch.Generator(dev).manual_seed(6), 1.0,
+                    pair_weights=job["pt_weights"])
+        finally:
+            undo()
+        return tr, batch, m, n
+
+    tr, batch, m, n = predator_step()
+    out["launches"]["dp_predator"] = (n.k1, n.k2)
+    out["predator"] = readings_of(tr, m)
+    out["predator_step_ms"] = synced_ms(lambda: tr.train_step_batched(
+        batch, gen, 1.0, pair_weights=job["pt_weights"]))
+    out["predator_faulted"] = readings_of(*predator_step(fault=True)[::2])
+    del tr, batch
+
+    k1 = k2 = 0
+    for name, kind, pairs in (("fcgf_eval", "eval", job["pairs"]),
+                              ("predator_eval", "predator_eval",
+                               job["kp_pairs"])):
+        tester = tester_for(kind, job["fields"][kind], dev)
+        with Counted() as n:
+            t0 = time.perf_counter()
+            stats = tester.test_sharded(pairs, mesh=mesh, seed=0)
+        k1, k2 = k1 + n.k1, k2 + n.k2
+        out[name] = dict(rte=stats.rte, rre=stats.rre,
+                         fitness=stats.fitness, success=stats.success,
+                         pairs_per_sec=stats.summary()["pairs_per_sec"],
+                         seconds=time.perf_counter() - t0, k1=n.k1)
+        del tester
+    out["launches"]["sharded_eval"] = (k1, k2)
+
+    a, b, am, bm = (torch.from_numpy(x).to(dev) for x in job["chamfer"])
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    v = chamfer_distance_sp(mesh)(a, b, am, bm)
+    v.backward()
+    out["chamfer_sp"] = (float(v.detach()), a.grad.cpu().numpy(),
+                         b.grad.cpu().numpy())
+
+    ptr = FCGFTrainer(cfg, device=dev, seed=0)
+    pipe = BuilderTrainerPipeline(ptr, 1, mesh)
+    losses = []
+    with Counted() as n:
+        t0 = time.perf_counter()
+        pipe.run(job["pipe_raws"], torch.Generator(dev).manual_seed(7),
+                 on_metrics=lambda m: losses.append(float(m["loss"])))
+    out["launches"]["pipeline"] = (n.k1, n.k2)
+    out["pipeline"] = dict(
+        builder=pipe.is_builder, losses=losses,
+        seconds=time.perf_counter() - t0,
+        params=None if pipe.is_builder else readings_of(ptr, {})["params"])
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def tester_for(kind, fields, dev):
+    """The FCGF ("eval") or Predator tester of ``fields``, random weights
+    from seed 0."""
+    from apr_torch.config import APRConfig
+    from apr_torch.eval import FeatureTester, PredatorTester
+    from apr_torch.training.predator import PredatorTrainer
+    from apr_torch.training.trainer import FCGFTrainer
+
+    c = APRConfig(**fields)
+    if kind == "eval":
+        return FeatureTester(c, FCGFTrainer(c, device=dev, seed=0),
+                             device=dev)
+    return PredatorTester(c, PredatorTrainer(c, device=dev, seed=0),
+                          device=dev)
+
+
+def nccl_rank(mesh):
+    """One NCCL all-reduce (the probe of two ranks on one card)."""
+    import torch.distributed as dist
+
+    t = torch.ones(1, device=mesh.device)
+    dist.all_reduce(t)
+    return float(t)
+
+
+def nccl_refuses_one_card(dev):
+    """Two NCCL ranks on one card: the error NCCL gives (the reason the
+    two-rank checks run gloo), or None when it takes them."""
+    from apr_torch.parallel.launch import spawn
+
+    try:
+        spawn(nccl_rank, 2, devices=str(dev), backend="nccl", timeout=60,
+              deadline=180, threads=None)
+    except RuntimeError as e:
+        return next((ln.strip() for ln in str(e).splitlines()
+                     if "Duplicate GPU" in ln or "NCCL error" in ln),
+                    str(e).splitlines()[-1])
+    return None
+
+
+def compare_rank_step(c, ranks, nudged, faulted, tol, fault):
+    """check_step's rule for a data-parallel step: rank 0's readings
+    against the one-process step's on the card, beside rank 1's, the
+    one-process step under a 1e-6 nudge and the planted fault's."""
+    check_step((as_torch(c), as_torch(ranks[0]), as_torch(ranks[1]),
+                as_torch(nudged), as_torch(faulted)), tol, fault)
+
+
+def multi_rank_phase(dev, pairs, kp_pairs, raws, pairs_per_s):
+    """Phase 22: (a) NCCL at world size 1 and the dry run; (b)-(f) two
+    gloo ranks on the card (see the module docstring).  Returns each
+    path's K1 / K2 launches over the ranks."""
+    import torch.distributed as dist
+
+    from apr_torch.config import APRConfig
+    from apr_torch.data.synthetic import synthetic_pair
+    from apr_torch.ops.chamfer import chamfer_distance
+    from apr_torch.parallel import make_mesh
+    from apr_torch.parallel.launch import spawn
+    from apr_torch.parallel.mesh import pair_generators
+    from apr_torch.training.predator import PredatorTrainer
+    from apr_torch.training.trainer import FCGFTrainer
+
+    fields = dict(train=TRAIN_FIELDS, predator_train=PT_FIELDS,
+                  eval=EVAL_FIELDS, predator_eval=KP_FIELDS,
+                  train_f32=dict(TRAIN_FIELDS, compute_dtype="float32"))
+    cfg = APRConfig(**TRAIN_FIELDS)
+
+    def one_step(mesh=None, nudge=False, c=cfg):
+        tr = FCGFTrainer(c, device=dev, seed=0)
+        if nudge:
+            g = torch.Generator().manual_seed(0)
+            with torch.no_grad():
+                for p in tr.parameters():
+                    p.mul_(1.0 + 1e-6 * torch.randn(p.shape, generator=g)
+                           .to(dev))
+        if mesh is not None:
+            tr.use_mesh(mesh)
+        batch = tr.build_batch(raws[0])
+        m = tr.train_step(batch, torch.Generator(dev).manual_seed(5))
+        return readings_of(tr, m), tr, batch
+
+    print("  (a) NCCL at world size 1: the FCGF data-parallel step through "
+          "make_mesh against the meshless step, phase 10's config, B = "
+          f"{cfg.batch_size}")
+    one, tr, batch = one_step()
+    one_ms = synced_ms(lambda: tr.train_step(
+        batch, torch.Generator(dev).manual_seed(8)))
+    del tr, batch
+    again = one_step()[0]
+    mesh = make_mesh(dev, rank=0, world_size=1)
+    try:
+        nccl, tr, batch = one_step(mesh)
+        nccl_ms = synced_ms(lambda: tr.train_step(
+            batch, torch.Generator(dev).manual_seed(8)))
+        del tr, batch
+    finally:
+        dist.destroy_process_group()
+    rerun = bitwise_same(one, again)
+    diff = bitwise_same(nccl, one)
+    print(f"  meshless step twice: {'bit for bit' if not rerun else rerun}")
+    print(f"  NCCL world-1 step vs meshless: "
+          f"{'bit for bit' if not diff else diff[:4]} (loss "
+          f"{nccl['metrics']['loss']!r} vs {one['metrics']['loss']!r}; "
+          f"{len(one['params'])} parameters, {len(one['stats'])} running "
+          f"stats)")
+    print(f"  step ms: meshless {one_ms:.1f}, NCCL world 1 {nccl_ms:.1f}")
+    if diff:
+        raise AssertionError(f"the NCCL world-1 step differs from the "
+                             f"meshless one: {diff[:8]}")
+    nudged_bf16 = one_step(nudge=True)[0]
+    f32 = APRConfig(**fields["train_f32"])
+    one_f32 = one_step(c=f32)[0]
+    nudged = one_step(nudge=True, c=f32)[0]
+    pcfg = APRConfig(**PT_FIELDS)
+    pair = synthetic_pair(seed=300, **PT_PAIR)
+    pt_raw = raw_batch([pair, pair], pcfg)     # the tail pair repeats
+    pt_weights = (1.0, 0.0)
+
+    def predator_one(nudge=False):
+        tr = PredatorTrainer(pcfg, device=dev, seed=0)
+        if nudge:
+            g = torch.Generator().manual_seed(0)
+            with torch.no_grad():
+                for p in tr.parameters():
+                    p.mul_(1.0 + 1e-6 * torch.randn(p.shape, generator=g)
+                           .to(dev))
+        batch = tr.build_batch_group(tuple(torch.from_numpy(x).to(dev)
+                                           for x in pt_raw))
+        m = tr.train_step_batched(batch, torch.Generator(dev).manual_seed(6),
+                                  1.0, pair_weights=pt_weights)
+        return readings_of(tr, m), tr, batch
+
+    pt_one, tr, batch = predator_one()
+    pt_one_ms = synced_ms(lambda: tr.train_step_batched(
+        batch, torch.Generator(dev).manual_seed(8), 1.0,
+        pair_weights=pt_weights))
+    del tr, batch
+    pt_rerun = bitwise_same(pt_one, predator_one()[0], ("grads",))
+    pt_nudged = predator_one(nudge=True)[0]
+
+    rng = np.random.default_rng(22)
+    cham = [rng.uniform(-40, 40, (CHAMFER_SP_POINTS, 3)).astype(np.float32)
+            for _ in range(2)]
+    masks = [np.arange(CHAMFER_SP_POINTS) < CHAMFER_SP_POINTS
+             - CHAMFER_SP_POINTS // k for k in (64, 20)]
+    job = dict(fields=fields, raw=raws[0], pt_raw=pt_raw,
+               pt_weights=pt_weights,
+               pairs=pairs, kp_pairs=kp_pairs,
+               chamfer=(cham[0], cham[1], masks[0], masks[1]),
+               pipe_raws=[raws[0], raws[1], raws[0]])
+    torch.cuda.empty_cache()
+    # the dry run (NCCL, one rank) starts beside the two gloo ranks: its
+    # card work is a few small steps, done while the ranks start up
+    t0 = time.perf_counter()
+    dry = subprocess.Popen([sys.executable, "-m", "apr_torch.dryrun", "1",
+                            "--device", dev.type], cwd=HERE,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        ranks = spawn(phase22_rank, DP_RANKS, args=(job,),
+                      devices=str(dev), backend="gloo", timeout=DP_TIMEOUT,
+                      deadline=DP_DEADLINE, threads=None)
+        print(f"  two gloo ranks on {dev} ran (b)-(f) in "
+              f"{time.perf_counter() - t0:.1f} s, start-up included")
+        out, err = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("dryrun_multichip(1)")]
+    for ln in lines:
+        print(f"  {ln}")
+    print(f"  python -m apr_torch.dryrun 1 (NCCL): exit {dry.returncode}")
+    if dry.returncode != 0 or len(lines) != 2:
+        raise AssertionError(f"the NCCL dry run failed:\n{err[-3000:]}")
+    launches = {path: tuple(sum(r["launches"][path][i] for r in ranks)
+                            for i in (0, 1))
+                for path in ranks[0]["launches"]}
+
+    print(f"  (b) FCGF data-parallel step, B = {cfg.batch_size} as "
+          f"{cfg.batch_size // DP_RANKS} + {cfg.batch_size // DP_RANKS}, "
+          "against the one-process step on the card")
+    for r, res in enumerate(ranks):
+        k1, k2 = res["launches"]["dp_fcgf"]
+        split = res["fcgf_split"]
+        print(f"  rank {r}: step {res['fcgf_step_ms']:.1f} ms (one process "
+              f"B = {cfg.batch_size}: {one_ms:.1f} ms); a synchronised step "
+              f"{res['fcgf_split_ms']:.1f} ms of which gather "
+              f"{split.get('gather', 0.0):.2f}, BN all-reduces "
+              f"{split.get('bn_all_reduce', 0.0):.2f}, gradient all-reduce "
+              f"{split.get('grad_all_reduce', 0.0):.2f}, finite flag "
+              f"{split.get('finite', 0.0):.2f} ms; K1 {k1} (one build), "
+              f"K2 {k2} (one step); peak {res['peak_gib']:.2f} GiB")
+        if (k1, k2) != (1, 4):
+            raise AssertionError(f"rank {r}: the data-parallel FCGF path "
+                                 f"launched K1 {k1} / K2 {k2} times, not "
+                                 f"1 / 4")
+    same = (bitwise_same(ranks[0]["fcgf"], ranks[1]["fcgf"])
+            + bitwise_same(ranks[0]["fcgf_bf16"], ranks[1]["fcgf_bf16"]))
+    print(f"  the ranks' readings: {'bit for bit' if not same else same[:4]}")
+    if same:
+        raise AssertionError("the ranks' FCGF steps differ")
+    # phase 12's rule is a float32 rule: in bf16 a 1e-6 nudge of the
+    # weights already moves the running stats by ~1e-3 of a tensor, so the
+    # gated comparison runs the same widths in float32; the bf16 step is
+    # printed beside its own nudge
+    bf16 = ranks[0]["fcgf_bf16"]
+    errs = leaf_errors(as_torch(one), as_torch(bf16), as_torch(nudged_bf16))
+    loss_rel = [max(abs(x["metrics"][n] - v) / max(abs(v), 1e-12)
+                    for n, v in one["metrics"].items())
+                for x in (bf16, nudged_bf16)]
+    top = {kind: [max(e[i] for k, _, _, e in errs if k == kind)
+                  for i in (0, 1)] for kind in ("stats", "grads")}
+    print(f"  bf16 (not gated), the largest differences, ranks vs one "
+          f"process / one process under a 1e-6 nudge: loss terms "
+          f"{loss_rel[0]:.2e} / {loss_rel[1]:.2e} (relative), running "
+          f"stats {top['stats'][0]:.2e} / {top['stats'][1]:.2e}, gradients "
+          f"{top['grads'][0]:.2e} / {top['grads'][1]:.2e} (of each "
+          f"tensor's largest entry)")
+    print("  float32 at the same widths, gated by phase 12's rule:")
+    compare_rank_step(one_f32, [r["fcgf"] for r in ranks], nudged,
+                      ranks[0]["fcgf_faulted"], GRAD_TOL,
+                      "no reverse_k flip")
+
+    print("  (c) Predator grouped step at kitti.yaml's width, group 2 over "
+          "2 ranks, weights (1, 0), against the one-process group")
+    for r, res in enumerate(ranks):
+        k1, k2 = res["launches"]["dp_predator"]
+        print(f"  rank {r}: step {res['predator_step_ms']:.1f} ms (one "
+              f"process, group of 2: {pt_one_ms:.1f} ms); K1 {k1}, K2 {k2}")
+        if (k1, k2) != (0, 4):
+            raise AssertionError(f"rank {r}: the grouped Predator path "
+                                 f"launched K1 {k1} / K2 {k2} times, not "
+                                 f"0 / 4")
+    same = bitwise_same(ranks[0]["predator"], ranks[1]["predator"])
+    print(f"  the ranks' readings: {'bit for bit' if not same else same[:4]}"
+          f"; the one-process group step run twice: {len(pt_rerun)} of "
+          f"{len(pt_one['grads'])} gradient leaves differ (its backward "
+          f"adds through float atomics: ROADMAP section 3)")
+    if same:
+        raise AssertionError("the ranks' Predator steps differ")
+    compare_rank_step(pt_one, [r["predator"] for r in ranks], pt_nudged,
+                      ranks[0]["predator_faulted"], PT_GRAD_TOL,
+                      "attention message detached")
+
+    print(f"  (d) test_sharded of both testers, {len(pairs)} pairs over "
+          f"{DP_RANKS} ranks, against one-process steps with the same "
+          "per-pair draws")
+    for name, kind, ps, per_s in (
+            ("fcgf_eval", "eval", pairs, pairs_per_s[0]),
+            ("predator_eval", "predator_eval", kp_pairs, pairs_per_s[1])):
+        tester = tester_for(kind, fields[kind], dev)
+        gen = torch.Generator(dev).manual_seed(0)
+        want = []
+        for kw, group in tester._sharded_groups(list(ps), DP_RANKS):
+            gens = pair_generators(gen, DP_RANKS)
+            for i, p in enumerate(group):
+                _, rte, rre, fit = tester.step(tester._pair_to_batch(
+                    p, **kw), gens[i])
+                want.append((float(rte), float(rre), float(fit)))
+        want = np.asarray(want)
+        want[:, 1] = np.where(np.isfinite(want[:, 1]), want[:, 1], 180.0)
+        for r, res in enumerate(ranks):
+            got = np.stack([res[name]["rte"], res[name]["rre"],
+                            res[name]["fitness"]], 1)
+            err = float(np.abs(got - want).max())
+            print(f"  {name} rank {r}: {res[name]['pairs_per_sec']:.3f} "
+                  f"pairs/s over both ranks (test on one process: "
+                  f"{per_s:.3f}); {res[name]['seconds']:.1f} s; K1 "
+                  f"{res[name]['k1']}; max |rank - one process| over RTE, "
+                  f"RRE, fitness {err:.3g}")
+            if err:
+                raise AssertionError(f"{name}: rank {r}'s results differ "
+                                     f"from the one-process steps")
+
+    a, b, am, bm = (torch.from_numpy(x).to(dev)
+                    for x in (cham[0], cham[1], masks[0], masks[1]))
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    v = chamfer_distance(a[None], b[None], am[None], bm[None])[0]
+    v.backward()
+    print(f"  (e) chamfer_sp, two {CHAMFER_SP_POINTS}-point clouds over "
+          f"{DP_RANKS} ranks, against chamfer_distance")
+    for r, res in enumerate(ranks):
+        val, ga, gb = res["chamfer_sp"]
+        ea = float(np.abs(ga - a.grad.cpu().numpy()).max())
+        eb = float(np.abs(gb - b.grad.cpu().numpy()).max())
+        print(f"  rank {r}: value {val!r} vs {float(v.detach())!r}; max "
+              f"grad errors {ea:.3g} / {eb:.3g}")
+        np.testing.assert_allclose(val, float(v.detach()), rtol=1e-5)
+        np.testing.assert_allclose(ga, a.grad.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-6)
+        np.testing.assert_allclose(gb, b.grad.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-6)
+
+    print("  (f) BuilderTrainerPipeline, 1 builder + 1 trainer, 3 steps, "
+          "against 3 serial steps on one process")
+    tr = FCGFTrainer(cfg, device=dev, seed=0)
+    gen = torch.Generator(dev).manual_seed(7)
+    losses = [float(tr.train_step(tr.build_batch(raw), gen)["loss"])
+              for raw in job["pipe_raws"]]
+    serial = readings_of(tr, {})["params"]
+    del tr
+    trainer_rank = next(r for r in ranks if not r["pipeline"]["builder"])
+    builder_rank = next(r for r in ranks if r["pipeline"]["builder"])
+    got = trainer_rank["pipeline"]
+    exact = (got["losses"] == losses and not bitwise_same(
+        dict(params=got["params"]), dict(params=serial), ("params",)))
+    err = max(float(np.abs(got["params"][n] - serial[n]).max())
+              for n in serial)
+    print(f"  losses {got['losses']} vs serial {losses}; parameters "
+          f"{'bit for bit' if exact else f'max abs diff {err:.3g}'}; "
+          f"{got['seconds']:.1f} s; K1 / K2 builder "
+          f"{builder_rank['launches']['pipeline']}, trainer "
+          f"{trainer_rank['launches']['pipeline']}")
+    if builder_rank["launches"]["pipeline"] != (3, 0) or \
+            trainer_rank["launches"]["pipeline"] != (0, 12):
+        raise AssertionError("the pipeline's builder must launch K1 once a "
+                             "build and its trainer K2 four times a step")
+    # held as phase 12 holds running stats: each tensor within 1e-4 of
+    # its own largest entry (exact where the builds and steps are)
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+    for n in serial:
+        np.testing.assert_allclose(
+            got["params"][n], serial[n], rtol=0,
+            atol=1e-4 * float(np.abs(serial[n]).max()), err_msg=n)
+    if dev.type == "cuda" and torch.cuda.device_count() == 1:
+        refused = nccl_refuses_one_card(dev)
+        print(f"  NCCL with two ranks on this one card: "
+              f"{refused or 'taken (the gloo checks above stand)'}")
+    print("  (two ranks share one card and time-slice it: these times are "
+          "the port's overhead, not multi-GPU scaling)")
+    return launches
+
+
 def main():
     import argparse
 
@@ -2849,7 +3394,7 @@ def main():
 
     t = phase(f"15 Predator slice: PredatorTester.test, {N_PAIRS} pairs, "
               f"KPFCNN-256 bf16")
-    predator_slice_phase(dev, kp_pairs)
+    kp_pairs_per_s = predator_slice_phase(dev, kp_pairs)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
     t = phase("16 Predator training slice: PredatorTrainer.train_step, "
@@ -2890,19 +3435,29 @@ def main():
     icp = icp_cache_phase(dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+    t = phase("22 the multi-device paths: NCCL at world size 1, then two "
+              "gloo ranks sharing the card (data-parallel FCGF and Predator "
+              "steps, test_sharded, chamfer_sp, the builder / trainer "
+              "pipeline)")
+    dp = multi_rank_phase(dev, pairs, kp_pairs, raws,
+                          (summ["pairs_per_sec"], kp_pairs_per_s))
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
     k2_err = max([k2_err, icp["icp_shape"]["max_abs_err"]]
                  + [r["max_abs_err"] for r in k2_rows + k2_pt_rows])
     record = {"kernels": [
         dict(K1, route="cuda",
              launches=(launches + k1_train + k1_loop + real["real_fcgf"][0]
-                       + icp["icp_loop"][0] + icp["extract_features"]),
+                       + icp["icp_loop"][0] + icp["extract_features"]
+                       + sum(k1 for k1, _ in dp.values())),
              launches_by_path={"eval": launches, "train": k1_train,
                                "predator_train": 0, "fcgf_loop": k1_loop,
                                "predator_loop": k1_ploop,
                                "real_fcgf": real["real_fcgf"][0],
                                "real_predator": 0, "icp": 0,
                                "icp_fcgf": icp["icp_loop"][0],
-                               "extract_features": icp["extract_features"]},
+                               "extract_features": icp["extract_features"],
+                               **{path: k1 for path, (k1, _) in dp.items()}},
              max_abs_err=max_err, ms=k1_b2["ms"],
              plain_ms=k1_b2["plain_ms"], bound_ms=k1_b2["bound_ms"],
              bound_by="bytes", library_ms=k1_b2["library_ms"]),
@@ -2910,7 +3465,8 @@ def main():
              launches=(k2_train + k2_pt + k2_loop + k2_ploop
                        + real["real_fcgf"][1] + real["real_predator"][1]
                        + icp["icp"] + icp["icp_loop"][1]
-                       + icp["cal_overlap"]),
+                       + icp["cal_overlap"]
+                       + sum(k2 for _, k2 in dp.values())),
              launches_by_path={"train": k2_train, "predator_train": k2_pt,
                                "fcgf_loop": k2_loop,
                                "predator_loop": k2_ploop,
@@ -2918,7 +3474,8 @@ def main():
                                "real_predator": real["real_predator"][1],
                                "icp": icp["icp"],
                                "icp_fcgf": icp["icp_loop"][1],
-                               "cal_overlap": icp["cal_overlap"]},
+                               "cal_overlap": icp["cal_overlap"],
+                               **{path: k2 for path, (_, k2) in dp.items()}},
              max_abs_err=k2_err, ms=k2_step["ms"],
              plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
              bound_by="operations", library_ms=k2_step["library_ms"],
@@ -2930,7 +3487,9 @@ def main():
     print("(K1's times: the 7 searches of one eval batch build, one grouped "
           "launch; K2's: the 4 nn_min calls of one FCGF train step, "
           "partitions included, under predator_train those of one "
-          "Predator train step, under icp one ICP search of phase 21)")
+          "Predator train step, under icp one ICP search of phase 21; the "
+          "launches of dp_fcgf, dp_predator, sharded_eval and pipeline are "
+          "summed over phase 22's two ranks)")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps(record))

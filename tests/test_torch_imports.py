@@ -61,7 +61,11 @@ def test_every_module_imports_without_jax_or_the_reference():
             "apr_torch.utils.logging_utils", "apr_torch.utils.ply",
             "apr_torch.utils.transforms", "apr_torch.utils.visualization",
             "apr_torch.eval.benchmark3dmatch",
-            "apr_torch.registration.benchmark_utils"} <= set(res["modules"])
+            "apr_torch.registration.benchmark_utils",
+            "apr_torch.parallel", "apr_torch.parallel.mesh",
+            "apr_torch.parallel.collectives", "apr_torch.parallel.chamfer_sp",
+            "apr_torch.parallel.pipeline", "apr_torch.parallel.launch",
+            "apr_torch.dryrun"} <= set(res["modules"])
     assert len(res["modules"]) == len(list(pkgutil.walk_packages(
         apr_torch.__path__, "apr_torch."))) + 1
 
@@ -116,6 +120,15 @@ def _entry_points():
     def tool(main, argv):
         return lambda device="cuda": main(argv + ["--device", device])
 
+    def mesh_of_one(device="cuda"):
+        import torch.distributed as dist
+
+        from apr_torch.parallel import make_mesh
+
+        mesh = make_mesh(device, rank=0, world_size=1)
+        dist.destroy_process_group()
+        return mesh
+
     return {
         "registration_icp": lambda **kw: registration_icp(
             cloud, cloud, 0.2, **kw),
@@ -158,6 +171,7 @@ def _entry_points():
         "run_predator_training": lambda **kw: run_predator_training(
             no_epochs(kp_cfg), **kw),
         "PairLoader": lambda **kw: PairLoader(_NoPairs(), cfg, **kw),
+        "make_mesh": mesh_of_one,
         "collate_raw": lambda **kw: collate_raw(
             [dict(points0=z3[0], points1=z3[0], apc0=z3[0], apc1=z3[0],
                   t_gt=np.eye(4, dtype=np.float32))],
@@ -177,7 +191,8 @@ def _entry_points():
                                   "_voxel_dedup", "compute_overlap_ratio",
                                   "get_matching_indices",
                                   "evaluate_feature_match",
-                                  "prepare_icp_cache", "cal_overlap"])
+                                  "prepare_icp_cache", "cal_overlap",
+                                  "make_mesh"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card, an entry point given no device raises; device='cpu'
     runs."""
@@ -187,3 +202,14 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
         make()
     if name != "resunet_from_flax":   # empty flax trees fail the bridge
         make(device="cpu")
+
+
+def test_the_dryrun_needs_its_cards(monkeypatch):
+    """The dry run on the card raises with fewer cards than ranks; it
+    never stands CPU processes in for them."""
+    from apr_torch.dryrun import dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices and has 0"):
+        dryrun_multichip(2)
+

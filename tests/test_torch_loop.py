@@ -15,6 +15,7 @@ each other and the other workers and slow the module several times over;
 on one thread its time barely depends on the load."""
 
 import json
+import logging
 import os
 
 import numpy as np
@@ -177,7 +178,8 @@ def test_resume_starts_from_the_saved_state(fcgf_runs):
     assert meta["epoch"] == 1 and "best_val" in meta
 
 
-def test_weights_finetune_and_the_one_device_rule(fcgf_runs, monkeypatch):
+def test_weights_finetune_and_the_one_device_rule(fcgf_runs, monkeypatch,
+                                                  caplog):
     monkeypatch.setattr(dsmod, "SyntheticPairDataset", _tiny(2, 1))
     made = _capture_trainers(monkeypatch, loopmod, "get_trainer")
     cfg = train_entry.config_from_args(ARGV[2:] + [
@@ -189,9 +191,16 @@ def test_weights_finetune_and_the_one_device_rule(fcgf_runs, monkeypatch):
     ref = fcgf_runs["made"][1]["trainer"].state_dict()
     _assert_bitwise(first["modules"], ref["modules"])
     assert first["optimizer"]["state"] == {} and first["step"] == 0
-    for bad in (dict(mesh_n_builders=2), dict(num_devices=2)):
-        with pytest.raises(NotImplementedError, match="D3"):
-            loopmod.run_training(cfg.replace(**bad), device="cpu")
+    # one process is one device: more devices or a builder split than
+    # there are fall back to it, the split with the reference's warning
+    for more, warned in ((dict(mesh_n_builders=2), True),
+                         (dict(num_devices=2), False)):
+        with caplog.at_level(logging.WARNING, logger=loopmod.__name__):
+            caplog.clear()
+            summary = loopmod.run_training(cfg.replace(**more),
+                                           device="cpu")
+        assert summary["steps"] == 1
+        assert ("falling back to serial DP" in caplog.text) == warned
 
 
 def test_a_loader_failure_fails_the_loop(tmp_path, monkeypatch):
