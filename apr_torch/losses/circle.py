@@ -31,6 +31,7 @@ import torch
 from apr_torch.geometry.se3 import apply_transform
 from apr_torch.losses import contrastive
 from apr_torch.ops.neighbors import sq_norm
+from apr_torch.ops.pooling import gather_rows
 
 # entries of the [N0, N1] saliency score matrix held at once (256 MiB)
 _SCORE_ELEMS = 1 << 26
@@ -247,7 +248,8 @@ def metric_loss(
         generator, tight, min(max_points, corr_src.shape[0]))
     ps, pt = c_src[pick.long()], c_tgt[pick.long()]
     coords_dist = _sqrt(_sq_dist_coords(src_warp[ps], tgt_pcd[pt]))
-    feats_dist = torch.sqrt(_sq_dist(src_feats[ps], tgt_feats[pt]))
+    feats_dist = torch.sqrt(_sq_dist(gather_rows(src_feats, ps),
+                                     gather_rows(tgt_feats, pt)))
     # padded rows and columns: neither positive nor negative
     bad = ~pick_ok
     neutral = np.float32(0.5) * (np.float32(pos_radius)

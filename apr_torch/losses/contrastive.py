@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from apr_torch.ops.pooling import gather_rows
+
 _BIG = 2**31 - 1
 
 
@@ -112,10 +114,10 @@ def hardest_contrastive_loss(
     i0 = pos_src[pidx.long()]
     i1 = pos_tgt[pidx.long()]
 
-    pf0 = feats0[i0.clamp(0, n0 - 1).long()]
-    pf1 = feats1[i1.clamp(0, n1 - 1).long()]
-    sub0 = feats0[s0.long()]
-    sub1 = feats1[s1.long()]
+    pf0 = gather_rows(feats0, i0.clamp(0, n0 - 1))
+    pf1 = gather_rows(feats1, i1.clamp(0, n1 - 1))
+    sub0 = gather_rows(feats0, s0)
+    sub1 = gather_rows(feats1, s1)
 
     d01 = torch.where(s1ok[None, :], _pdist2(pf0, sub1), float("inf"))
     d10 = torch.where(s0ok[None, :], _pdist2(pf1, sub0), float("inf"))
@@ -161,8 +163,10 @@ def _positives(generator, feats0, feats1, pos_src, pos_tgt, pos_mask,
     """The features of ``num_pos`` sampled positive pairs and their
     validity."""
     pidx, pok = _sample_without_replacement(generator, pos_mask, num_pos)
-    pf0 = feats0[pos_src[pidx.long()].clamp(0, feats0.shape[0] - 1).long()]
-    pf1 = feats1[pos_tgt[pidx.long()].clamp(0, feats1.shape[0] - 1).long()]
+    pf0 = gather_rows(feats0, pos_src[pidx.long()].clamp(
+        0, feats0.shape[0] - 1))
+    pf1 = gather_rows(feats1, pos_tgt[pidx.long()].clamp(
+        0, feats1.shape[0] - 1))
     return pf0, pf1, pok
 
 
@@ -193,7 +197,7 @@ def contrastive_loss_random_negatives(
     pf0, pf1, pok = _positives(generator, feats0, feats1, pos_src, pos_tgt,
                                pos_mask, num_pos)
     nidx, nok = _sample_without_replacement(generator, mask1, num_neg)
-    nf1 = feats1[nidx.long()]
+    nf1 = gather_rows(feats1, nidx)
     take = min(num_pos, num_neg)
     pos_d = _norm(pf0 - pf1)
     neg_d = _norm(pf0[:take] - nf1[:take])
@@ -228,7 +232,7 @@ def triplet_loss(
                                pos_mask, num_pos)
     d_pos = _norm(pf0 - pf1)
     sidx, sok = _sample_without_replacement(generator, mask1, num_hn_samples)
-    d2 = torch.where(sok[None, :], _pdist2(pf0, feats1[sidx.long()]),
+    d2 = torch.where(sok[None, :], _pdist2(pf0, gather_rows(feats1, sidx)),
                      float("inf"))
     if hardest:
         d_neg = torch.sqrt(d2.min(1).values)

@@ -13,7 +13,8 @@ from apr_torch.models.resunet import ResUNet2, make_resunet
 from apr_torch.models.resunet import _VARIANTS as RESUNET_VARIANTS
 from apr_torch.models.simpleunet import SimpleUNet, make_simplenet, \
     simplenet_names
-from apr_torch.models.sparse import SparseLevel, SparsePyramid
+from apr_torch.models.sparse import SparseLevel, SparsePyramid, \
+    build_pyramid, sparse_conv_apply
 
 _RESUNET_NAMES = sorted(RESUNET_VARIANTS) + [
     "ResUNetIN2", "ResUNetIN2B", "ResUNetIN2C", "ResUNetIN2D", "ResUNetIN2E",
@@ -37,7 +38,15 @@ def model_names():
     return _RESUNET_NAMES + simplenet_names() + sorted(MLP_VARIANTS)
 
 
-__all__ = ["GenerativeMLP", "MLP_VARIANTS", "ResUNet2", "SimpleUNet",
-           "SparseLevel", "SparsePyramid", "load_model",
-           "make_generative_mlp", "make_resunet", "make_simplenet",
-           "model_names"]
+__all__ = [
+    "GenerativeMLP",
+    "ResUNet2",
+    "SparseLevel",
+    "SparsePyramid",
+    "build_pyramid",
+    "sparse_conv_apply",
+    "load_model",
+    "make_resunet",
+    "make_generative_mlp",
+    "model_names",
+]

@@ -19,6 +19,7 @@ from torch import nn
 from apr_torch.models.layers import MaskedInstanceNorm
 from apr_torch.models.resunet import Dense
 from apr_torch.ops.neighbors import _pairwise_sqdist, _smallest_k
+from apr_torch.ops.pooling import gather_rows
 
 
 def _graph_features(coords, feats, mask, k):
@@ -31,7 +32,7 @@ def _graph_features(coords, feats, mask, k):
     eye = torch.eye(n, dtype=torch.bool, device=coords.device)
     d2 = torch.where(eye, float("inf"), d2)
     _, idx = _smallest_k(d2, k)                       # [N, k]
-    nb = feats[idx]
+    nb = gather_rows(feats, idx)
     center = feats[:, None, :].expand(-1, k, -1)
     return torch.cat([center, nb - center], dim=-1)
 

@@ -40,7 +40,8 @@ from apr_torch.models.layers import MaskedInstanceNorm
 from apr_torch.models.resunet import Dense
 from apr_torch.ops.neighbors import knn, radius_neighbors, \
     windowed_radius_neighbors
-from apr_torch.ops.pooling import gather_neighbors, max_pool_neighbors
+from apr_torch.ops.pooling import gather_neighbors, gather_rows, \
+    max_pool_neighbors
 from apr_torch.ops.voxelize import voxelize_pyramid
 
 log = logging.getLogger(__name__)
@@ -243,11 +244,8 @@ class KPConvLayer(nn.Module):
         if self.ones_input:
             neighb_x = None
         else:
-            # a gather whose backward sums each row's duplicates after one
-            # sort and skips the shadow row: the backward of x_pad[flat_idx]
-            # accumulates the shadow row's many duplicates one by one
-            x_pad = torch.cat([x.reshape(p * ns, cin), x.new_zeros((1, cin))])
-            neighb_x = _cast(F.embedding(flat_idx, x_pad, padding_idx=p * ns),
+            # the shadow row p * ns is a zero row that takes no gradient
+            neighb_x = _cast(gather_rows(x.reshape(p * ns, cin), flat_idx),
                              cd)                              # [F, nmax, Cin]
 
         # every kernel point's influence at once, in float32

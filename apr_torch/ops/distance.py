@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from apr_torch.ops.pooling import flat_segments, sorted_row_sums
+
 
 def nn_min_plain(queries: torch.Tensor, supports: torch.Tensor,
                  s_mask: Optional[torch.Tensor] = None, block: int = 2048
@@ -253,13 +255,8 @@ def directed_backward(queries, supports, resolved, idx, nq, g):
     nn_pts = torch.gather(supports, 1, safe[..., None].expand(-1, -1, 3))
     diff = torch.where(resolved[..., None], queries - nn_pts, 0.0)
     dq = (2.0 * g / nq)[:, None, None] * diff
-    offs = torch.arange(b, device=idx.device)[:, None] * n_s
-    target = (safe + offs).reshape(-1)
-    order = torch.argsort(target, stable=True)
-    counts = torch.zeros(b * n_s, dtype=torch.int64, device=idx.device)
-    counts.scatter_add_(0, target, torch.ones_like(target))
-    ds = torch.segment_reduce(-dq.reshape(-1, 3)[order], "sum",
-                              lengths=counts, axis=0)
+    ds, _ = sorted_row_sums(-dq.reshape(-1, 3), flat_segments(safe, n_s),
+                            b * n_s)
     return dq, ds.reshape(b, n_s, 3)
 
 

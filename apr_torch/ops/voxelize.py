@@ -1,7 +1,8 @@
 """Fixed-capacity voxelization over a leading batch of clouds.
 
 The port of ``apr_tpu/ops/voxelize.py`` (``voxelize``, ``voxelize_lean``,
-``voxelize_pyramid``, ``dedup_points``, ``unique_of_sorted``).  Outputs
+``voxelize_pyramid``, ``dedup_points``, ``unique_of_sorted``,
+``voxel_down_sample``, ``grid_subsample``).  Outputs
 have static shapes: voxels come in ascending key order, padding (and
 overflow beyond capacity, which drops the largest keys) sits at the tail
 and is flagged by the mask.  ``rep`` is the lowest original point index of
@@ -19,6 +20,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from apr_torch.ops.pooling import flat_segments, sorted_row_sums
 from apr_torch.ops.hashing import INVALID_KEY, morton_pack, morton_unpack, \
     pack_coords, unpack_coords
 
@@ -44,19 +46,15 @@ class VoxelGrid(NamedTuple):
 
 
 def _run_sums(values: torch.Tensor, seg: torch.Tensor, num: int):
-    """Sums of the runs of values [B, N, D] whose ids seg [B, N] in [0, num]
-    are non-decreasing along each row; returns (sums [B, num, D], counts
-    [B, num] int32), the sentinel run ``num`` dropped.  Each run adds in
-    order from its first entry (``segment_reduce``), never through
-    atomics, so every device gives the same bits."""
+    """Sums of values [B, N, D] per id of seg [B, N] in [0, num], each id's
+    entries added in order along the row, the sentinel ``num`` dropped:
+    (sums [B, num, D], counts [B, num] int32), the same bits on every
+    device (:func:`apr_torch.ops.pooling.sorted_row_sums`)."""
     b, n = seg.shape
-    counts = torch.zeros((b, num + 1), dtype=torch.int64, device=seg.device)
-    counts.scatter_add_(1, seg.long(),
-                        torch.ones_like(seg, dtype=torch.int64))
-    sums = torch.segment_reduce(values.reshape(b * n, -1), "sum",
-                                lengths=counts.reshape(-1), axis=0)
-    return (sums.reshape(b, num + 1, -1)[:, :num],
-            counts[:, :num].to(torch.int32))
+    sums, counts = sorted_row_sums(values.reshape(b * n, -1),
+                                   flat_segments(seg, num), b * num)
+    return (sums.reshape(b, num, -1),
+            counts.reshape(b, num).to(torch.int32))
 
 
 def _segment_min(values: torch.Tensor, seg: torch.Tensor, num: int,
@@ -75,8 +73,7 @@ def _grid_of_sorted(k_sorted, order, p_sorted, cap: int, unpack):
     uniq, seg = unique_of_sorted(k_sorted, cap)
     vox_mask = uniq != INVALID_KEY
     found = seg < cap
-    psum, counts = _run_sums(torch.where(found[..., None], p_sorted, 0.0),
-                             seg, cap)
+    psum, counts = _run_sums(p_sorted, seg, cap)
     barycenter = psum / torch.clamp(counts, min=1)[..., None]
     rep = torch.where(vox_mask, _segment_min(
         torch.where(found, order.to(torch.int32), n), seg, cap, n), n)
@@ -96,18 +93,52 @@ def _sorted_by(keys: torch.Tensor, points: torch.Tensor):
                                          order[..., None].expand(-1, -1, 3))
 
 
+def _voxel_keys(points: torch.Tensor, voxel_size: float,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Packed voxel keys of clouds [B, N, 3], INVALID at masked points."""
+    keys = pack_coords(voxel_coords(points, voxel_size))
+    return keys if mask is None else torch.where(mask, keys, INVALID_KEY)
+
+
 def voxelize(points: torch.Tensor, voxel_size: float, capacity: int,
              mask: Optional[torch.Tensor] = None) -> VoxelGrid:
     """Quantize clouds ``points`` [B, N, 3] onto ``capacity`` voxels each;
     beyond capacity the largest packed keys are dropped and their points
     map to the sentinel ``capacity``."""
-    b, n, _ = points.shape
-    if mask is None:
-        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
-    keys = torch.where(mask, pack_coords(voxel_coords(points, voxel_size)),
-                       INVALID_KEY)
-    return _grid_of_sorted(*_sorted_by(keys, points), capacity,
+    return _grid_of_sorted(
+        *_sorted_by(_voxel_keys(points, voxel_size, mask), points),
+        capacity, unpack_coords)
+
+
+def voxel_down_sample(points: torch.Tensor, voxel_size: float,
+                      capacity: int, mask: Optional[torch.Tensor] = None):
+    """Open3D ``voxel_down_sample``: the barycenters of the occupied voxels
+    of clouds [B, N, 3].  Returns (points [B, C, 3], mask [B, C])."""
+    grid = voxelize(points, voxel_size, capacity, mask)
+    return grid.barycenter, grid.mask
+
+
+def grid_subsample(points: torch.Tensor, voxel_size: float, capacity: int,
+                   features: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None):
+    """C++ ``grid_subsampling``: barycenters of clouds [B, N, 3] and the
+    mean of features [B, N, F] per voxel.  Each voxel's features add over
+    its sorted run in original index order (:func:`_run_sums`), the order
+    of the reference's segment sum.  Returns (points [B, C, 3], features
+    [B, C, F] or None, mask [B, C])."""
+    k_sorted, order, p_sorted = _sorted_by(
+        _voxel_keys(points, voxel_size, mask), points)
+    grid = _grid_of_sorted(k_sorted, order, p_sorted, capacity,
                            unpack_coords)
+    if features is None:
+        return grid.barycenter, None, grid.mask
+    seg = torch.gather(grid.point_voxel, 1, order)
+    f_sorted = torch.gather(features, 1, order[..., None].expand(
+        -1, -1, features.shape[2]))
+    fsum, counts = _run_sums(f_sorted, seg, capacity)
+    fmean = fsum / torch.clamp(counts, min=1)[..., None]
+    return grid.barycenter, torch.where(grid.mask[..., None], fmean,
+                                        0.0), grid.mask
 
 
 def voxelize_pyramid(points: torch.Tensor, base_voxel: float,
@@ -175,12 +206,9 @@ def voxelize_lean(
     Returns ``(coords [B, C, 3] int32, keys [B, C] int32 ascending,
     vox_mask [B, C] bool, rep [B, C] int32)``; ``rep`` is ``N`` at padding.
     """
-    b, n, _ = points.shape
-    if mask is None:
-        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
-    keys = torch.where(mask, pack_coords(voxel_coords(points, voxel_size)),
-                       INVALID_KEY)
-    k_sorted, idx_sorted = torch.sort(keys, dim=1, stable=True)
+    n = points.shape[1]
+    k_sorted, idx_sorted = torch.sort(_voxel_keys(points, voxel_size, mask),
+                                      dim=1, stable=True)
     uniq, seg = unique_of_sorted(k_sorted, capacity)
     vox_mask = uniq != INVALID_KEY
     found = seg < capacity
@@ -202,12 +230,8 @@ def dedup_points(points: torch.Tensor, voxel_size: float,
     is the lowest-original-index member of each voxel (ME sparse_quantize
     'sel').  Voxel keys use :func:`voxel_coords`, as the reference's
     compiled program computes them."""
-    b, n, _ = points.shape
-    if mask is None:
-        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
-    keys = torch.where(mask, pack_coords(voxel_coords(points, voxel_size)),
-                       INVALID_KEY)
-    ks, order = torch.sort(keys, dim=1, stable=True)
+    ks, order = torch.sort(_voxel_keys(points, voxel_size, mask), dim=1,
+                           stable=True)
     pts = torch.gather(points, 1, order[..., None].expand(-1, -1, 3))
     is_first = ks != INVALID_KEY
     is_first[:, 1:] &= ks[:, 1:] != ks[:, :-1]

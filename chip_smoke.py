@@ -2,6 +2,7 @@
 """Drive the apr_torch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
+    python3 chip_smoke.py --phases 16,22-25   # these phases (and 1, 2) only
     python3 chip_smoke.py --k1-baseline DIR   # phases 3b, 8 time DIR's K1 too
 
 Phases (each prints its lines and raises on failure, so any failure exits
@@ -57,9 +58,11 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    single-pair steps (w_saliency 0, then 1) with the K1 / K2 launch counts
    read around them (0 K1, 4 K2 per step), steps/s, peak memory and a
    stage split; one "window" step, one valid_step and one
-   train_step_batched_fused at B = 2 (8 K2 launches); then K2 at this
-   step's shapes against its plain version (exact), timed against its
-   bound;
+   train_step_batched_fused at B = 2 (8 K2 launches); the step run twice
+   from fresh trainers (PT_PAIR seed 300), bit for bit in every loss
+   term, running stat, parameter and gradient leaf (on a difference, the
+   first module whose input gradient differs); then K2 at this step's
+   shapes against its plain version (exact), timed against its bound;
 17. one float32 Predator train step at a small size, card against CPU,
    from the same weights and correspondence draws, and the same step with
    a planted backward fault (the GCN's attention message detached), which
@@ -102,10 +105,12 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    GT from the cache, ``extract_features`` on one frame (1 K1, card vs
    CPU) and ``cal_overlap`` on three frames (equal to cKDTree's ratios);
 22. the multi-device paths (one card: NCCL refuses two ranks on one GPU):
-   (a) the FCGF data-parallel step at phase 10's config through
-   ``make_mesh`` on NCCL at world size 1 against the meshless step, bit
-   for bit (loss, running stats, every parameter), and ``python -m
-   apr_torch.dryrun 1``; then two gloo ranks spawned on the card: (b) the
+   (a) the FCGF data-parallel step at phase 10's config and the grouped
+   Predator step at kitti.yaml's width through ``make_mesh`` on NCCL at
+   world size 1 against the meshless steps, bit for bit (loss terms,
+   running stats, every parameter and gradient), the Predator step twice
+   bit for bit, and ``python -m apr_torch.dryrun 1``; then two gloo ranks
+   spawned on the card: (b) the
    same step at B = 2 + 2 against the one-process B = 4 step (loss terms
    and running stats within 1e-4, each gradient leaf by phase 12's rule, a
    planted fault caught, the ranks bit for bit, 1 K1 / 4 K2 a rank); (c)
@@ -114,9 +119,22 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    K1 / 4 K2 a rank); (d) test_sharded of both testers on 8 pairs against
    the one-process steps with the same per-pair draws (exact); (e)
    chamfer_sp on two 65536-point clouds against chamfer_distance; (f) the
-   builder / trainer pipeline (1 + 1) for 3 steps against serial steps.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+   builder / trainer pipeline (1 + 1) for 3 steps against serial steps;
+23. ops: ``segment_mean_capped``, ``voxel_down_sample`` and
+   ``grid_subsample`` on a 120000-point cloud at 0.3 m, twice on the card
+   and on the CPU, all bit for bit; the ``apr_torch.ops`` recipe
+   (voxelize, radius_neighbors, chamfer_distance);
+24. the synthetic-convergence tools at short settings through their
+   mains: ``validate_convergence`` (8 steps, window and pallas Chamfer:
+   one K1 launch a batch build, 4 K2 a pallas step),
+   ``validate_predator_convergence`` (4 steps, no K1 / K2),
+   ``validate_apr_gain`` (4 steps, both arms) with ``pool_apr_gain`` on
+   its log, and ``sweep_ransac`` on 4 pairs at one ratio;
+25. ``apr_torch.native``: the host library built with g++ at first use,
+   against its numpy fallbacks on a 120000-point cloud.
+``--phases`` runs a subset (phases 1 and 2 always run); timings of
+phases not selected are null in the record.  The line before the last is
+the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -1236,10 +1254,82 @@ def predator_train_phase(dev):
                              f"times; its pairs run one after another, 4 "
                              f"each")
 
+    predator_twin_run(dev)
     print("  K2 at this step's shapes (the 4 launches of one step):")
     rows = time_k2(predator_k2_inputs(trainer, trainer.build_batch(
         singles[0])))
     return k2_pt, rows
+
+
+def bit_hash(t):
+    """A checksum of a tensor's bits (any flipped bit changes it)."""
+    t = t.detach().contiguous()
+    ints = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+    return (int(ints.long().sum()), int((ints.long() * 31).remainder_(
+        1000003).sum()))
+
+
+def input_grad_hashes(modules):
+    """Register hooks that record, in backward order, a bit checksum of
+    the gradient of each module call's tensor inputs; returns (the record,
+    the function that removes the hooks)."""
+    record, handles = [], []
+    for top in modules:
+        for name, mod in top.named_modules():
+            def fwd(m, args, out, name=f"{type(top).__name__}.{name}"):
+                for i, a in enumerate(args):
+                    if isinstance(a, torch.Tensor) and a.requires_grad:
+                        a.register_hook(lambda g, tag=f"{name} input {i}":
+                                        record.append((tag, bit_hash(g))))
+            handles.append(mod.register_forward_hook(fwd))
+    return record, lambda: [h.remove() for h in handles]
+
+
+def predator_twin_run(dev):
+    """A1's gate: the Predator train step at kitti.yaml's width (phase
+    16's config, PT_PAIR seed 300) run twice from fresh trainers: every
+    loss term, running stat, parameter and gradient leaf bit for bit.  On
+    a difference, the first module call (in backward order) whose input
+    gradient differs names the site.  Returns the number of gradient
+    leaves."""
+    from apr_torch.config import APRConfig
+    from apr_torch.data.synthetic import synthetic_pair
+    from apr_torch.training.predator import PredatorTrainer
+
+    c = APRConfig(**PT_FIELDS)
+    single = tuple(x[0] for x in raw_batch(
+        [synthetic_pair(seed=300, **PT_PAIR)], c))
+
+    def once():
+        tr = PredatorTrainer(c, device=dev, seed=0)
+        batch = tr.build_batch(single)
+        record, remove = input_grad_hashes(tr.modules())
+        try:
+            m = tr.train_step(batch, torch.Generator(dev).manual_seed(6),
+                              1.0)
+            torch.cuda.synchronize()
+        finally:
+            remove()
+        return readings_of(tr, m), record
+
+    (a, rec_a), (b, rec_b) = once(), once()
+    diff = bitwise_same(a, b)
+    n_grads = len(a["grads"])
+    print(f"  the Predator step run twice (PT_PAIR seed 300): "
+          f"{'bit for bit' if not diff else f'{len(diff)} readings differ'}"
+          f" in {len(a['metrics'])} loss terms, {len(a['stats'])} running "
+          f"stats, {len(a['params'])} parameters and {n_grads} gradient "
+          f"leaves")
+    if diff:
+        first = next(((x, y) for x, y in zip(rec_a, rec_b) if x != y),
+                     None)
+        print(f"  differing: {diff[:12]}")
+        print(f"  first module input gradient that differs, in backward "
+              f"order: {first and first[0][0]} (of {len(rec_a)} recorded)")
+        raise AssertionError("the Predator train step is not deterministic "
+                             "on the card")
+    return n_grads
 
 
 def per_step(rows):
@@ -2762,17 +2852,44 @@ def multi_rank_phase(dev, pairs, kp_pairs, raws, pairs_per_s):
     print("  (a) NCCL at world size 1: the FCGF data-parallel step through "
           "make_mesh against the meshless step, phase 10's config, B = "
           f"{cfg.batch_size}")
+    pcfg = APRConfig(**PT_FIELDS)
+    pair = synthetic_pair(seed=300, **PT_PAIR)
+    pt_raw = raw_batch([pair, pair], pcfg)     # the tail pair repeats
+    pt_weights = (1.0, 0.0)
+
+    def predator_one(mesh=None, nudge=False):
+        tr = PredatorTrainer(pcfg, device=dev, seed=0)
+        if nudge:
+            g = torch.Generator().manual_seed(0)
+            with torch.no_grad():
+                for p in tr.parameters():
+                    p.mul_(1.0 + 1e-6 * torch.randn(p.shape, generator=g)
+                           .to(dev))
+        if mesh is not None:
+            tr.use_mesh(mesh)
+        batch = tr.build_batch_group(tuple(torch.from_numpy(x).to(dev)
+                                           for x in pt_raw))
+        m = tr.train_step_batched(batch, torch.Generator(dev).manual_seed(6),
+                                  1.0, pair_weights=pt_weights)
+        return readings_of(tr, m), tr, batch
+
     one, tr, batch = one_step()
     one_ms = synced_ms(lambda: tr.train_step(
         batch, torch.Generator(dev).manual_seed(8)))
     del tr, batch
     again = one_step()[0]
+    pt_one, tr, batch = predator_one()
+    pt_one_ms = synced_ms(lambda: tr.train_step_batched(
+        batch, torch.Generator(dev).manual_seed(8), 1.0,
+        pair_weights=pt_weights))
+    del tr, batch
     mesh = make_mesh(dev, rank=0, world_size=1)
     try:
         nccl, tr, batch = one_step(mesh)
         nccl_ms = synced_ms(lambda: tr.train_step(
             batch, torch.Generator(dev).manual_seed(8)))
         del tr, batch
+        pt_nccl = predator_one(mesh)[0]
     finally:
         dist.destroy_process_group()
     rerun = bitwise_same(one, again)
@@ -2787,35 +2904,22 @@ def multi_rank_phase(dev, pairs, kp_pairs, raws, pairs_per_s):
     if diff:
         raise AssertionError(f"the NCCL world-1 step differs from the "
                              f"meshless one: {diff[:8]}")
+    pt_rerun = bitwise_same(pt_one, predator_one()[0])
+    pt_diff = bitwise_same(pt_nccl, pt_one)
+    print(f"  the grouped Predator step (kitti.yaml's width, group of 2, "
+          f"weights (1, 0)) twice: "
+          f"{'bit for bit' if not pt_rerun else pt_rerun[:4]}; NCCL world "
+          f"1 vs meshless: {'bit for bit' if not pt_diff else pt_diff[:4]} "
+          f"({len(pt_one['grads'])} gradient leaves, "
+          f"{len(pt_one['stats'])} running stats)")
+    if pt_rerun or pt_diff:
+        raise AssertionError(f"the grouped Predator step is not bit for "
+                             f"bit: twice {pt_rerun[:8]}, NCCL world 1 "
+                             f"{pt_diff[:8]}")
     nudged_bf16 = one_step(nudge=True)[0]
     f32 = APRConfig(**fields["train_f32"])
     one_f32 = one_step(c=f32)[0]
     nudged = one_step(nudge=True, c=f32)[0]
-    pcfg = APRConfig(**PT_FIELDS)
-    pair = synthetic_pair(seed=300, **PT_PAIR)
-    pt_raw = raw_batch([pair, pair], pcfg)     # the tail pair repeats
-    pt_weights = (1.0, 0.0)
-
-    def predator_one(nudge=False):
-        tr = PredatorTrainer(pcfg, device=dev, seed=0)
-        if nudge:
-            g = torch.Generator().manual_seed(0)
-            with torch.no_grad():
-                for p in tr.parameters():
-                    p.mul_(1.0 + 1e-6 * torch.randn(p.shape, generator=g)
-                           .to(dev))
-        batch = tr.build_batch_group(tuple(torch.from_numpy(x).to(dev)
-                                           for x in pt_raw))
-        m = tr.train_step_batched(batch, torch.Generator(dev).manual_seed(6),
-                                  1.0, pair_weights=pt_weights)
-        return readings_of(tr, m), tr, batch
-
-    pt_one, tr, batch = predator_one()
-    pt_one_ms = synced_ms(lambda: tr.train_step_batched(
-        batch, torch.Generator(dev).manual_seed(8), 1.0,
-        pair_weights=pt_weights))
-    del tr, batch
-    pt_rerun = bitwise_same(pt_one, predator_one()[0], ("grads",))
     pt_nudged = predator_one(nudge=True)[0]
 
     rng = np.random.default_rng(22)
@@ -2915,9 +3019,8 @@ def multi_rank_phase(dev, pairs, kp_pairs, raws, pairs_per_s):
                                  f"0 / 4")
     same = bitwise_same(ranks[0]["predator"], ranks[1]["predator"])
     print(f"  the ranks' readings: {'bit for bit' if not same else same[:4]}"
-          f"; the one-process group step run twice: {len(pt_rerun)} of "
-          f"{len(pt_one['grads'])} gradient leaves differ (its backward "
-          f"adds through float atomics: ROADMAP section 3)")
+          f" (the two ranks sum in another order than one process: held "
+          f"by phase 17's rule)")
     if same:
         raise AssertionError("the ranks' Predator steps differ")
     compare_rank_step(pt_one, [r["predator"] for r in ranks], pt_nudged,
@@ -3014,33 +3117,125 @@ def multi_rank_phase(dev, pairs, kp_pairs, raws, pairs_per_s):
     return launches
 
 
-def main():
-    import argparse
+class Shared:
+    """What the phases share.  A phase that needs what an earlier phase
+    makes (the eval pairs, the level-0 grids, the train batches, the KP
+    pairs) takes it from here, where it is made at first use when that
+    phase was not selected; each phase adds its kernels' launches and
+    readings for the record."""
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--k1-baseline", metavar="DIR",
-                    help="another checkout of this repo whose K1 (wrapper "
-                         "and kernel source) phases 3b and 8 time beside "
-                         "this one's")
-    args = ap.parse_args()
-    if not os.path.isdir(os.path.join(HERE, "apr_torch")):
-        sys.exit("chip_smoke.py: apr_torch/ not found next to this script; "
-                 "run it from the root of a checkout")
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke.py: no CUDA device; this script runs on the "
-                 "card only")
-    sys.path.insert(0, HERE)
-    t_all = time.perf_counter()
-    dev = torch.device(DEVICE)
+    def __init__(self, dev, args):
+        self.dev = dev
+        self.args = args
+        self.baseline = None
+        self.smi = None
+        self.k1_launches = {}          # path -> K1 launches in its run
+        self.k2_launches = {}
+        self.k1_err = 0
+        self.k2_err = 0.0
+        self.k1_time = None            # phase 8's record (one eval build)
+        self.k2_time = None            # phase 11's (one FCGF step)
+        self.pt_step = None            # phase 16's (one Predator step)
+        self.icp_shape = None          # phase 21's (one ICP search)
+        self.pairs_per_s = [float("nan"), float("nan")]
+        self._made = {}
 
+    def made(self, name, fn):
+        if name not in self._made:
+            self._made[name] = fn()
+        return self._made[name]
+
+    @property
+    def pairs(self):
+        """The eval slice's N_PAIRS synthetic pairs."""
+        from apr_torch.data.synthetic import synthetic_pair
+
+        return self.made("pairs", lambda: [
+            synthetic_pair(seed=s, n_points=N_POINTS, apc_points=4,
+                           extent=60.0, distance=20.0)
+            for s in range(N_PAIRS)])
+
+    @property
+    def levels(self):
+        """The level-0 grid of the first 4 pairs' 8 clouds at 0.3 m and
+        its coarser levels (SparseLevel each)."""
+        def make():
+            from apr_torch.data.synthetic import pad_points
+            from apr_torch.models.sparse import SparseLevel, \
+                downsample_level
+            from apr_torch.ops.voxelize import voxelize_lean
+
+            clouds = [p[k] for p in self.pairs[:4]
+                      for k in ("points0", "points1")]
+            padded = [pad_points(c, POINT_CAPACITY) for c in clouds]
+            pts = torch.from_numpy(np.stack([p for p, _ in padded])).to(
+                self.dev)
+            msk = torch.from_numpy(np.stack([m for _, m in padded])).to(
+                self.dev)
+            coords, keys, vmask, _ = voxelize_lean(pts, 0.3, CAPS[0], msk)
+            levels = [SparseLevel(coords, keys, vmask)]
+            for cap in CAPS[1:]:
+                levels.append(downsample_level(levels[-1], cap))
+            return levels
+        return self.made("levels", make)
+
+    @property
+    def tester(self):
+        """The eval slice's FeatureTester (ResUNetFatBN-128 bf16)."""
+        def make():
+            from apr_torch.config import APRConfig
+            from apr_torch.eval import FeatureTester
+            from apr_torch.training.trainer import FCGFTrainer
+
+            cfg = APRConfig(**EVAL_FIELDS)
+            return FeatureTester(cfg, FCGFTrainer(cfg, device=self.dev,
+                                                  seed=0), device=self.dev)
+        return self.made("tester", make)
+
+    @property
+    def raws(self):
+        """The training slice's two batches of raw arrays."""
+        def make():
+            from apr_torch.config import APRConfig
+
+            cfg = APRConfig(**TRAIN_FIELDS)
+            b = cfg.batch_size
+            t0 = time.perf_counter()
+            tpairs = train_pairs(2 * b)
+            out = [raw_batch(tpairs[:b], cfg), raw_batch(tpairs[b:], cfg)]
+            print(f"  {len(tpairs)} synthetic pairs ({TRAIN_POINTS} points, "
+                  f"{TRAIN_APC_POINTS} APC points) made on the host in "
+                  f"{time.perf_counter() - t0:.1f} s (set-up, not timed)")
+            return out
+        return self.made("raws", make)
+
+    @property
+    def train_trainer(self):
+        """The training slice's FCGFTrainer."""
+        from apr_torch.config import APRConfig
+        from apr_torch.training.trainer import FCGFTrainer
+
+        return self.made("train_trainer", lambda: FCGFTrainer(
+            APRConfig(**TRAIN_FIELDS), device=self.dev, seed=0))
+
+    @property
+    def kp_pairs(self):
+        """The Predator eval's N_PAIRS synthetic pairs."""
+        from apr_torch.data.synthetic import synthetic_pair
+
+        return self.made("kp_pairs", lambda: [
+            synthetic_pair(seed=s, **KP_PAIR) for s in range(N_PAIRS)])
+
+
+def phase_1(ctx):
     phase("1 device")
     import apr_torch  # noqa: F401  (sets the TF32 flags)
 
-    smi = subprocess.run(
+    ctx.smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
-    print(smi)
+    print(ctx.smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
@@ -3049,6 +3244,8 @@ def main():
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 must be off for the port's float32 paths")
 
+
+def phase_2(ctx):
     phase("2 build")
     from apr_torch.kernels.build import BUILD_ROOT, build_all
 
@@ -3059,17 +3256,18 @@ def main():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {log.stem}: {line.strip()}")
-    baseline = None
-    if args.k1_baseline:
-        baseline = baseline_k1(args.k1_baseline)
-        print(f"  baseline K1 built from {args.k1_baseline}")
+    if ctx.args.k1_baseline:
+        ctx.baseline = baseline_k1(ctx.args.k1_baseline)
+        print(f"  baseline K1 built from {ctx.args.k1_baseline}")
 
+
+def phase_3a(ctx):
     phase("3a K1 contract cases (kernel vs plain vs numpy, exact; one by "
           "one, then grouped)")
     from apr_torch.ops.searchsorted import searchsorted_left, \
         searchsorted_left_many, searchsorted_left_plain
 
-    max_err = 0
+    dev = ctx.dev
     cases = [(name, sup, q, torch.from_numpy(sup)[None].to(dev),
               torch.from_numpy(q)[None].to(dev))
              for name, sup, q in contract_cases()]
@@ -3079,7 +3277,7 @@ def main():
         want = searchsorted_left_plain(s_t, q_t)
         err = max(int((got - want).abs().max()),
                   int((got_many - want).abs().max()))
-        max_err = max(max_err, err)
+        ctx.k1_err = max(ctx.k1_err, err)
         ref = np.searchsorted(sup, q, side="left")
         if err or not np.array_equal(got[0].cpu().numpy(), ref):
             raise AssertionError(f"K1 wrong on {name}: err {err}")
@@ -3089,34 +3287,24 @@ def main():
           f"{-(-len(cases) // 8)} launches: exact")
     torch.cuda.synchronize()
 
-    t = phase("3b K1 at full capacity, 7 searches over 8 clouds")
-    from apr_torch.config import APRConfig
-    from apr_torch.data.synthetic import pad_points, synthetic_pair
-    from apr_torch.models.sparse import SparseLevel, \
-        build_pyramid_from_level, downsample_level, kernel_map_down, \
-        kernel_map_same, kernel_map_up
-    from apr_torch.ops.voxelize import voxelize_lean
 
-    caps = CAPS
-    pairs = [synthetic_pair(seed=s, n_points=N_POINTS, apc_points=4,
-                            extent=60.0, distance=20.0)
-             for s in range(N_PAIRS)]
-    clouds = [p[k] for p in pairs[:4] for k in ("points0", "points1")]
-    padded = [pad_points(c, POINT_CAPACITY) for c in clouds]
-    pts = torch.from_numpy(np.stack([p for p, _ in padded])).to(dev)
-    msk = torch.from_numpy(np.stack([m for _, m in padded])).to(dev)
-    coords, keys, vmask, _ = voxelize_lean(pts, 0.3, caps[0], msk)
-    level0 = SparseLevel(coords, keys, vmask)
+def phase_3b(ctx):
+    t = phase("3b K1 at full capacity, 7 searches over 8 clouds")
+    levels = ctx.levels
     print(f"  voxels per cloud at level 0: "
-          f"{vmask.sum(1).tolist()} of {caps[0]}")
-    levels = [level0]
-    for cap in caps[1:]:
-        levels.append(downsample_level(levels[-1], cap))
-    k1_b8 = time_searches(searches_of(levels, 5), baseline=baseline)
+          f"{levels[0].mask.sum(1).tolist()} of {CAPS[0]}")
+    k1_b8 = time_searches(searches_of(levels, 5), baseline=ctx.baseline)
+    ctx.k1_err = max(ctx.k1_err, k1_b8["max_abs_err"])
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_4(ctx):
     t = phase("4 pyramid: fast maps through K1 equal the slow oracles")
-    pyr = build_pyramid_from_level(level0, caps, 5)
+    from apr_torch.models.sparse import build_pyramid_from_level, \
+        kernel_map_down, kernel_map_same, kernel_map_up
+
+    levels = ctx.levels
+    pyr = build_pyramid_from_level(levels[0], CAPS, 5)
     checks = [("conv1 5^3", pyr.conv1_map, kernel_map_same(levels[0], 5))]
     for l in range(1, 4):
         checks.append((f"same L{l}", pyr.same_maps[l],
@@ -3133,11 +3321,17 @@ def main():
         print(f"  {name}: {tuple(fast.shape)} equal")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_5(ctx):
     t = phase("5 encoder ResUNetFatBN, card vs CPU (float32) and bf16")
     from apr_torch.models import load_model
+    from apr_torch.models.sparse import SparseLevel, \
+        build_pyramid_from_level
 
+    dev = ctx.dev
+    coords, keys, vmask = ctx.levels[0]
     one = SparseLevel(coords[:1], keys[:1], vmask[:1])
-    pyr1 = build_pyramid_from_level(one, caps, 5)
+    pyr1 = build_pyramid_from_level(one, CAPS, 5)
     pyr1_cpu = tree_map(lambda x: x.cpu(), pyr1)
     feats = vmask[:1, :, None].float()
     kw = dict(out_channels=128, conv1_kernel_size=5, ones_input=True,
@@ -3159,10 +3353,13 @@ def main():
         raise AssertionError("bf16 encoder output is not finite")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
-    t = phase("6 RANSAC on ground-truth correspondences, 50% outliers")
+
+def phase_6(ctx):
+    phase("6 RANSAC on ground-truth correspondences, 50% outliers")
     from apr_torch.registration.metrics import registration_errors
     from apr_torch.registration.ransac import ransac_pose
 
+    dev = ctx.dev
     rng = np.random.default_rng(1)
     yaw = 0.4
     t_gt = np.eye(4, dtype=np.float32)
@@ -3186,23 +3383,21 @@ def main():
     if not (rte < 0.05 and rre < 0.5):
         raise AssertionError("RANSAC missed the ground-truth pose")
 
-    t = phase("7 slice: FeatureTester.test, 8 pairs, ResUNetFatBN-128 bf16")
-    from apr_torch.eval import FeatureTester
-    from apr_torch.training.trainer import FCGFTrainer
 
-    cfg = APRConfig(model="ResUNetFatBN", model_n_out=128,
-                    conv1_kernel_size=5, compute_dtype="bfloat16",
-                    voxel_size=0.3, point_capacity=POINT_CAPACITY,
-                    capacities=caps, test_subsample=SUBSAMPLE,
-                    test_num_ransac_hypotheses=HYPOTHESES)
-    trainer = FCGFTrainer(cfg, device=dev, seed=0)
-    tester = FeatureTester(cfg, trainer, device=dev)
+def phase_7(ctx):
+    t = phase("7 slice: FeatureTester.test, 8 pairs, ResUNetFatBN-128 bf16")
+    from apr_torch.ops.searchsorted import searchsorted_left
+
+    dev, pairs, tester = ctx.dev, ctx.pairs, ctx.tester
+    trainer = tester.trainer
     searchsorted_left.launches = 0
     t_main = time.perf_counter()
     stats = tester.test(pairs, seed=0)
     main_s = time.perf_counter() - t_main
     launches = searchsorted_left.launches
+    ctx.k1_launches["eval"] = launches
     summ = stats.summary()
+    ctx.pairs_per_s[0] = summ["pairs_per_sec"]
     print(f"  pairs/s {summ['pairs_per_sec']:.3f} (pairs 2-8, pipelined; "
           f"{main_s:.2f} s for all 8 with the first pair's warm-up)")
     print(f"  recall {summ['recall']:.3f} (random weights: not asserted)")
@@ -3230,25 +3425,27 @@ def main():
         raise AssertionError("non-finite raw outputs of one pair")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_8(ctx):
     t = phase("8 K1 at the main path's shapes (one batch build, B=2)")
-    batch = tester._pair_to_batch(pairs[0])
+    batch = ctx.tester._pair_to_batch(ctx.pairs[0])
     both = tree_map(lambda a, b: torch.cat([a, b]), batch.pyramid0.levels,
                     batch.pyramid1.levels)
-    k1_b2 = time_searches(searches_of(both, 5), baseline=baseline)
-    max_err = max(max_err, k1_b8["max_abs_err"], k1_b2["max_abs_err"])
+    ctx.k1_time = time_searches(searches_of(both, 5), baseline=ctx.baseline)
+    ctx.k1_err = max(ctx.k1_err, ctx.k1_time["max_abs_err"])
     print("  (the record's times are those of these 7 searches)")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_9(ctx):
     t = phase("9 K2 contract cases (kernel vs plain, d2 bit for bit, idx "
               "exact)")
-    from apr_torch.ops.distance import nn_min
-
-    k2_err = 0.0
+    dev = ctx.dev
     for name, q, s, m, qm in k2_contract_cases():
         qm_t = None if qm is None else torch.from_numpy(qm).to(dev)
         d2, idx, err = k2_check(
             *(torch.from_numpy(x).to(dev) for x in (q, s, m)), qm_t, name)
-        k2_err = max(k2_err, err)
+        ctx.k2_err = max(ctx.k2_err, err)
         none = torch.from_numpy(~m.any(1)).to(dev)
         if (bool((idx[none] != s.shape[1]).any())
                 or not bool(torch.isinf(d2[none]).all())):
@@ -3259,11 +3456,17 @@ def main():
               f"supports {m.sum(1).tolist()} exact")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_10(ctx):
     t = phase("10 training slice: FCGFTrainer.train_step, ResUNetFatBN-128 "
               "bf16, B=4, chamfer_mode=pallas")
     from dataclasses import replace
 
-    cfg_t = APRConfig(**TRAIN_FIELDS)
+    from apr_torch.ops.distance import nn_min
+    from apr_torch.ops.searchsorted import searchsorted_left
+
+    dev, raws, trainer_t = ctx.dev, ctx.raws, ctx.train_trainer
+    cfg_t = trainer_t.config
     print(f"  {cfg_t.trainer} {cfg_t.model}-{cfg_t.model_n_out} conv1 "
           f"{cfg_t.conv1_kernel_size}^3 {cfg_t.compute_dtype} B="
           f"{cfg_t.batch_size} caps {cfg_t.capacities} points "
@@ -3271,14 +3474,7 @@ def main():
           f"{cfg_t.generator_model} ratio {cfg_t.point_generation_ratio} "
           f"{cfg_t.optimizer} lr {cfg_t.lr} momentum {cfg_t.sgd_momentum} "
           f"wd {cfg_t.weight_decay} chamfer {cfg_t.chamfer_mode}")
-    t0 = time.perf_counter()
     b_t = cfg_t.batch_size
-    tpairs = train_pairs(2 * b_t)
-    raws = [raw_batch(tpairs[:b_t], cfg_t), raw_batch(tpairs[b_t:], cfg_t)]
-    print(f"  {len(tpairs)} synthetic pairs ({TRAIN_POINTS} points, "
-          f"{TRAIN_APC_POINTS} APC points) made on the host in "
-          f"{time.perf_counter() - t0:.1f} s (set-up, not timed below)")
-    trainer_t = FCGFTrainer(cfg_t, device=dev, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     searchsorted_left.launches = 0
@@ -3294,6 +3490,7 @@ def main():
         step_metrics.append({n: float(v) for n, v in metrics.items()})
         positives.append(int(batch_t.pos_mask.sum()))
     k1_train, k2_train = searchsorted_left.launches, nn_min.launches
+    ctx.k1_launches["train"], ctx.k2_launches["train"] = k1_train, k2_train
     for k, (sec, m, n_pos) in enumerate(zip(step_s, step_metrics,
                                             positives)):
         print(f"  step {k}: {sec * 1e3:9.1f} ms  positives {n_pos}  " +
@@ -3359,9 +3556,14 @@ def main():
         raise AssertionError("valid_step gave a non-finite metric")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_11(ctx):
     t = phase("11 K2 at the train step's shapes (the 4 launches of a step)")
-    k2_rows = time_k2(k2_inputs(trainer_t, trainer_t.build_batch(raws[0])))
-    k2_step = per_step(k2_rows)
+    trainer_t = ctx.train_trainer
+    k2_rows = time_k2(k2_inputs(trainer_t,
+                                trainer_t.build_batch(ctx.raws[0])))
+    ctx.k2_err = max([ctx.k2_err] + [r["max_abs_err"] for r in k2_rows])
+    k2_step = ctx.k2_time = per_step(k2_rows)
     print(f"  per step: nn_min {k2_step['ms']:.3f} ms (partition "
           f"{k2_step['partition_ms']:.3f} ms, kernel "
           f"{k2_step['kernel_ms']:.3f} ms)  plain "
@@ -3375,32 +3577,43 @@ def main():
           f"{k2_step['sort_ms'] * 1e3:.1f} us")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_12(ctx):
     t = phase("12 train step, card vs CPU (float32, small, same weights and "
               "samples)")
-    compare_train_step(dev)
+    compare_train_step(ctx.dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
-    from apr_torch.data.synthetic import synthetic_pair as kp_pair
 
-    kp_pairs = [kp_pair(seed=s, **KP_PAIR) for s in range(N_PAIRS)]
+def phase_13(ctx):
     t = phase("13 KP neighbours at full capacity, card vs CPU")
-    kp_neighbour_phase(dev, kp_pairs[0])
+    kp_neighbour_phase(ctx.dev, ctx.kp_pairs[0])
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_14(ctx):
     t = phase("14 KPFCNN forward at full width, card vs CPU (float32) and "
               "bf16")
-    kp_forward_phase(dev, kp_pairs[0])
+    kp_forward_phase(ctx.dev, ctx.kp_pairs[0])
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_15(ctx):
     t = phase(f"15 Predator slice: PredatorTester.test, {N_PAIRS} pairs, "
               f"KPFCNN-256 bf16")
-    kp_pairs_per_s = predator_slice_phase(dev, kp_pairs)
+    ctx.pairs_per_s[1] = predator_slice_phase(ctx.dev, ctx.kp_pairs)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_16(ctx):
     t = phase("16 Predator training slice: PredatorTrainer.train_step, "
-              "kitti.yaml at full width, chamfer_mode=pallas")
-    k2_pt, k2_pt_rows = predator_train_phase(dev)
-    pt_step = per_step(k2_pt_rows)
+              "kitti.yaml at full width, chamfer_mode=pallas, and the step "
+              "twice bit for bit")
+    k2_pt, k2_pt_rows = predator_train_phase(ctx.dev)
+    ctx.k1_launches["predator_train"] = 0
+    ctx.k2_launches["predator_train"] = k2_pt
+    ctx.k2_err = max([ctx.k2_err] + [r["max_abs_err"] for r in k2_pt_rows])
+    pt_step = ctx.pt_step = per_step(k2_pt_rows)
     print(f"  per step: nn_min {pt_step['ms']:.3f} ms (kernel "
           f"{pt_step['kernel_ms']:.3f} ms)  plain {pt_step['plain_ms']:.3f} "
           f"ms  cdist+min {pt_step['library_ms']:.3f} ms  bound "
@@ -3408,91 +3621,368 @@ def main():
           f"{pt_step['bound_ms'] / pt_step['ms']:.2f} of the bound")
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_17(ctx):
     t = phase("17 Predator train step, card vs CPU (float32, small, same "
               "weights and draws)")
-    compare_predator_step(dev)
+    compare_predator_step(ctx.dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_18(ctx):
     t = phase("18 FCGF training loop through the CLI (python -m "
               "apr_torch.train), resume, iter_size=2, symmetric")
-    k1_loop, k2_loop = fcgf_loop_phase(dev)
+    ctx.k1_launches["fcgf_loop"], ctx.k2_launches["fcgf_loop"] = \
+        fcgf_loop_phase(ctx.dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_19(ctx):
     t = phase("19 Predator training loop through the YAML entry (python -m "
               "apr_torch.main configs/train/kitti.yaml), test mode, "
               "iter_size=2")
-    k1_ploop, k2_ploop = predator_loop_phase(dev)
+    ctx.k1_launches["predator_loop"], ctx.k2_launches["predator_loop"] = \
+        predator_loop_phase(ctx.dev)
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_20(ctx):
     t = phase("20 the real-data path: a KITTI-format tree, FCGF training "
               "and both eval scripts, Predator kitti.yaml train and test, "
               "the .pth import")
-    real = real_data_phase(dev)
+    real = real_data_phase(ctx.dev)
+    for path in ("real_fcgf", "real_predator"):
+        ctx.k1_launches[path], ctx.k2_launches[path] = real[path]
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
+
+def phase_21(ctx):
     t = phase("21 the odometry-pose GT path: prepare_icp_cache on the card, "
               "ICP card vs CPU and vs cKDTree, the cache in use")
-    icp = icp_cache_phase(dev)
+    icp = icp_cache_phase(ctx.dev)
+    ctx.k1_launches["icp_fcgf"], ctx.k2_launches["icp_fcgf"] = \
+        icp["icp_loop"]
+    ctx.k1_launches["extract_features"] = icp["extract_features"]
+    ctx.k2_launches["icp"] = icp["icp"]
+    ctx.k2_launches["cal_overlap"] = icp["cal_overlap"]
+    ctx.icp_shape = icp["icp_shape"]
+    ctx.k2_err = max(ctx.k2_err, icp["icp_shape"]["max_abs_err"])
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
-    t = phase("22 the multi-device paths: NCCL at world size 1, then two "
-              "gloo ranks sharing the card (data-parallel FCGF and Predator "
-              "steps, test_sharded, chamfer_sp, the builder / trainer "
-              "pipeline)")
-    dp = multi_rank_phase(dev, pairs, kp_pairs, raws,
-                          (summ["pairs_per_sec"], kp_pairs_per_s))
+
+def phase_22(ctx):
+    t = phase("22 the multi-device paths: NCCL at world size 1 (FCGF and "
+              "Predator steps bit for bit), then two gloo ranks sharing the "
+              "card (data-parallel FCGF and Predator steps, test_sharded, "
+              "chamfer_sp, the builder / trainer pipeline)")
+    dp = multi_rank_phase(ctx.dev, ctx.pairs, ctx.kp_pairs, ctx.raws,
+                          tuple(ctx.pairs_per_s))
+    for path, (k1, k2) in dp.items():
+        ctx.k1_launches[path], ctx.k2_launches[path] = k1, k2
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
-    k2_err = max([k2_err, icp["icp_shape"]["max_abs_err"]]
-                 + [r["max_abs_err"] for r in k2_rows + k2_pt_rows])
-    record = {"kernels": [
-        dict(K1, route="cuda",
-             launches=(launches + k1_train + k1_loop + real["real_fcgf"][0]
-                       + icp["icp_loop"][0] + icp["extract_features"]
-                       + sum(k1 for k1, _ in dp.values())),
-             launches_by_path={"eval": launches, "train": k1_train,
-                               "predator_train": 0, "fcgf_loop": k1_loop,
-                               "predator_loop": k1_ploop,
-                               "real_fcgf": real["real_fcgf"][0],
-                               "real_predator": 0, "icp": 0,
-                               "icp_fcgf": icp["icp_loop"][0],
-                               "extract_features": icp["extract_features"],
-                               **{path: k1 for path, (k1, _) in dp.items()}},
-             max_abs_err=max_err, ms=k1_b2["ms"],
-             plain_ms=k1_b2["plain_ms"], bound_ms=k1_b2["bound_ms"],
-             bound_by="bytes", library_ms=k1_b2["library_ms"]),
-        dict(K2, route="cuda",
-             launches=(k2_train + k2_pt + k2_loop + k2_ploop
-                       + real["real_fcgf"][1] + real["real_predator"][1]
-                       + icp["icp"] + icp["icp_loop"][1]
-                       + icp["cal_overlap"]
-                       + sum(k2 for _, k2 in dp.values())),
-             launches_by_path={"train": k2_train, "predator_train": k2_pt,
-                               "fcgf_loop": k2_loop,
-                               "predator_loop": k2_ploop,
-                               "real_fcgf": real["real_fcgf"][1],
-                               "real_predator": real["real_predator"][1],
-                               "icp": icp["icp"],
-                               "icp_fcgf": icp["icp_loop"][1],
-                               "cal_overlap": icp["cal_overlap"],
-                               **{path: k2 for path, (_, k2) in dp.items()}},
-             max_abs_err=k2_err, ms=k2_step["ms"],
-             plain_ms=k2_step["plain_ms"], bound_ms=k2_step["bound_ms"],
-             bound_by="operations", library_ms=k2_step["library_ms"],
-             predator_train={k: pt_step[k] for k in (
-                 "ms", "plain_ms", "bound_ms", "library_ms")},
-             icp={k: icp["icp_shape"][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "ckdtree_query_ms")}),
+
+OPS_POINTS = 120000       # phase 23's LiDAR-scale cloud
+OPS_VOXEL = 0.3
+OPS_CAPACITY = 131072
+OPS_FEATURES = 32
+
+
+def phase_23(ctx):
+    """A2's segment mean and E1's down-samplers on one LiDAR-scale cloud:
+    two card runs bit for bit, the card against the CPU (masks and counts
+    exact, floats bit for bit: each voxel's run adds in index order on
+    both), and the package recipe."""
+    t = phase(f"23 ops: segment_mean_capped, voxel_down_sample and "
+              f"grid_subsample on a {OPS_POINTS}-point cloud at "
+              f"{OPS_VOXEL} m, card twice and against the CPU; the "
+              f"apr_torch.ops recipe")
+    from apr_torch.data.synthetic import synthetic_pair
+    from apr_torch.ops import chamfer_distance, grid_subsample, \
+        radius_neighbors, segment_mean_capped, voxel_down_sample, voxelize
+
+    dev = ctx.dev
+    pair = synthetic_pair(seed=23, n_points=OPS_POINTS, apc_points=4,
+                          extent=60.0, distance=10.0)
+    rng = np.random.default_rng(23)
+    pts_h = torch.from_numpy(pair["points0"])[None]
+    feats_h = torch.from_numpy(rng.normal(size=(
+        1, pts_h.shape[1], OPS_FEATURES)).astype(np.float32))
+    mask_h = torch.from_numpy(rng.random((1, pts_h.shape[1])) > 0.05)
+    pts, feats, mask = pts_h.to(dev), feats_h.to(dev), mask_h.to(dev)
+    seg_h = voxelize(pts_h, OPS_VOXEL, OPS_CAPACITY, mask_h).point_voxel
+    seg = seg_h.to(dev)
+
+    def ops_on(p, f, m, s):
+        return (segment_mean_capped(f, s, OPS_CAPACITY),
+                *voxel_down_sample(p, OPS_VOXEL, OPS_CAPACITY, m),
+                *grid_subsample(p, OPS_VOXEL, OPS_CAPACITY, f, m),
+                voxelize(p, OPS_VOXEL, OPS_CAPACITY, m).counts)
+
+    names = ("segment_mean_capped", "voxel_down_sample points",
+             "voxel_down_sample mask", "grid_subsample points",
+             "grid_subsample features", "grid_subsample mask",
+             "voxelize counts")
+    first = ops_on(pts, feats, mask, seg)
+    again = ops_on(pts, feats, mask, seg)
+    cpu = ops_on(pts_h, feats_h, mask_h, seg_h)
+    n_vox = int(first[2].sum())
+    print(f"  {pts_h.shape[1]} points, {int(mask_h.sum())} valid, {n_vox} "
+          f"voxels of {OPS_CAPACITY}, {OPS_FEATURES} features a point")
+    for name, a, b, c in zip(names, first, again, cpu):
+        twice, vs_cpu = torch.equal(a, b), torch.equal(a.cpu(), c)
+        print(f"  {name}: card twice {'bit for bit' if twice else 'DIFFER'}"
+              f", card vs CPU {'bit for bit' if vs_cpu else 'DIFFER'}")
+        if not (twice and vs_cpu):
+            raise AssertionError(f"{name} is not the same bits twice on the "
+                                 f"card and on the CPU")
+    ms = cuda_ms(lambda: grid_subsample(pts, OPS_VOXEL, OPS_CAPACITY, feats,
+                                        mask), reps=10)
+    ms_mean = cuda_ms(lambda: segment_mean_capped(feats, seg, OPS_CAPACITY),
+                      reps=10)
+    print(f"  card: grid_subsample {ms:.3f} ms, segment_mean_capped "
+          f"{ms_mean:.3f} ms (mean of 10)")
+
+    g0 = voxelize(pts, OPS_VOXEL, OPS_CAPACITY, mask)
+    g1 = voxelize(torch.from_numpy(pair["points1"])[None].to(dev), OPS_VOXEL,
+                  OPS_CAPACITY)
+    nb = radius_neighbors(g0.barycenter, g0.barycenter, 1.0, 16, g0.mask,
+                          g0.mask)
+    cd = chamfer_distance(g0.barycenter, g1.barycenter, g0.mask, g1.mask)
+    found = nb[g0.mask]
+    per_voxel = float((found < OPS_CAPACITY).sum(1).float().mean())
+    print(f"  recipe (voxelize, radius_neighbors, chamfer_distance from "
+          f"apr_torch.ops): {per_voxel:.1f} neighbours a voxel within 1 m, "
+          f"Chamfer {float(cd[0]):.4f} m^2")
+    if not (bool((found[:, 0] < OPS_CAPACITY).all())
+            and bool(torch.isfinite(cd).all())):
+        raise AssertionError("the ops recipe failed")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+
+def run_tool(module, argv, log=None):
+    """``python -m apr_torch.tools.<module> argv`` in this process (so the
+    kernels' launches are counted), the standard output also written to
+    ``log``; returns (main's result, K1 launches, K2 launches)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"apr_torch.tools.{module}")
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, s):
+            buf.write(s)
+            return sys.__stdout__.write("    " + s if s.strip() else s)
+
+    with Counted() as n, contextlib.redirect_stdout(Tee()):
+        out = mod.main(argv)
+    if log is not None:
+        with open(log, "w") as f:
+            f.write(buf.getvalue())
+    return out, n.k1, n.k2
+
+
+def phase_24(ctx):
+    """E2's tools at short settings through their mains, with the kernels'
+    launches asserted: one K1 launch a batch build, four K2 a step with
+    the pallas Chamfer, none on the Predator tool."""
+    t = phase("24 the synthetic-convergence tools at short settings "
+              "(validate_convergence, validate_predator_convergence, "
+              "validate_apr_gain + pool_apr_gain, sweep_ransac)")
+    import tempfile
+
+    steps, pairs = 8, 2
+    on = ["--device", ctx.dev.type]
+    for chamfer in (None, "pallas"):
+        argv = on + ["--steps", str(steps), "--eval_pairs", str(pairs)]
+        if chamfer:
+            argv += ["--chamfer", chamfer]
+        t0 = time.perf_counter()
+        s, k1, k2 = run_tool("validate_convergence", argv)
+        path = f"validate_convergence{'_' + chamfer if chamfer else ''}"
+        ctx.k1_launches[path], ctx.k2_launches[path] = k1, k2
+        print(f"  validate_convergence {' '.join(argv[2:])}: "
+              f"{time.perf_counter() - t0:.1f} s, recall {s['recall']:.3f} "
+              f"(8 steps: not asserted), K1 {k1} (4 train + {pairs} eval "
+              f"builds), K2 {k2}")
+        if k1 != 4 + pairs or k2 != (4 * steps if chamfer else 0):
+            raise AssertionError(f"validate_convergence launched K1 {k1} / "
+                                 f"K2 {k2} times")
+    t0 = time.perf_counter()
+    res, k1, k2 = run_tool("validate_predator_convergence",
+                           on + ["--steps", "4", "--eval_pairs", str(pairs)])
+    ctx.k1_launches["validate_predator"] = k1
+    ctx.k2_launches["validate_predator"] = k2
+    print(f"  validate_predator_convergence --steps 4: "
+          f"{time.perf_counter() - t0:.1f} s, recall {res['recall']:.3f}, "
+          f"K1 {k1}, K2 {k2} (the tool's window Chamfer)")
+    if k1 != 0 or k2 != 0:
+        raise AssertionError("the Predator tool launched K1 or K2")
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "gain.log")
+        argv = on + ["--steps", "4", "--seeds", "1", "--seed0", "2",
+                "--pool_pairs", "4", "--eval_pairs", str(pairs)]
+        t0 = time.perf_counter()
+        lines, k1, k2 = run_tool("validate_apr_gain", argv, log)
+        ctx.k1_launches["validate_apr_gain"] = k1
+        ctx.k2_launches["validate_apr_gain"] = k2
+        builds = 2 * (4 // 2 + 4 * pairs)
+        print(f"  validate_apr_gain {' '.join(argv[2:])}: "
+              f"{time.perf_counter() - t0:.1f} s, K1 {k1} ({builds} batch "
+              f"builds over both arms), K2 {k2}")
+        if k1 != builds or len(lines) != 4:
+            raise AssertionError("validate_apr_gain: wrong launches or "
+                                 "PAIRED lines")
+        pooled, _, _ = run_tool("pool_apr_gain", [log])
+        if len(pooled) != 4:
+            raise AssertionError("pool_apr_gain did not pool the log")
+    t0 = time.perf_counter()
+    table, k1, k2 = run_tool("sweep_ransac", on + [
+        "--pairs", "4", "--ratios", "0.05", "--hyps", "32768",
+        "--esc_rungs", "2"])
+    print(f"  sweep_ransac --pairs 4 --ratios 0.05: "
+          f"{time.perf_counter() - t0:.1f} s, recall by column "
+          f"{table[0.05]}")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+
+def phase_25(ctx):
+    """E3: the host C++ library, built with g++ from apr_torch/csrc at
+    first use, against its numpy fallbacks on a LiDAR-scale cloud."""
+    t = phase("25 apr_torch.native: the compiled host library against its "
+              "numpy fallbacks")
+    from apr_torch import native
+    from apr_torch.data.synthetic import synthetic_pair
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    path = native.lib_path()
+    print(f"  library {os.path.relpath(path, HERE)} "
+          f"({time.perf_counter() - t0:.1f} s to build and load)")
+    if lib is None or not path.is_file():
+        raise AssertionError("apr_torch.native did not build its library")
+    pts = synthetic_pair(seed=25, n_points=OPS_POINTS, apc_points=4,
+                         extent=60.0, distance=10.0)["points0"]
+    feats = np.random.default_rng(25).normal(size=(len(pts), 8)).astype(
+        np.float32)
+
+    def lexicographic(p, f):
+        order = np.lexsort(np.floor(p / OPS_VOXEL).T[::-1])
+        return p[order], f[order]
+
+    t0 = time.perf_counter()
+    got = native.grid_subsample(pts, OPS_VOXEL, None, feats)
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = native.grid_subsample_numpy(pts, OPS_VOXEL, len(pts), feats)
+    np_s = time.perf_counter() - t0
+    got_l, want_l = lexicographic(*got), lexicographic(*want)
+    for g, w in zip(got_l, want_l):
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=0)
+    sel = native.voxel_dedup(pts, OPS_VOXEL)
+    np.testing.assert_array_equal(sel, native.voxel_dedup_numpy(
+        pts, OPS_VOXEL, len(pts)))
+    q = pts[::60]
+    nb = native.radius_neighbors(q, pts, 1.0, 16)
+    nb_np = native.radius_neighbors_numpy(q, pts, 1.0, 16)
+    rows = np.flatnonzero((nb != nb_np).any(1))
+    for i in rows:      # near-ties only: the same distances within 1e-5
+        d = [np.sort(np.linalg.norm(pts[r[r < len(pts)]] - q[i], axis=1))
+             for r in (nb[i], nb_np[i])]
+        np.testing.assert_allclose(d[0], d[1], atol=1e-5)
+    print(f"  grid_subsample: {len(got[0])} voxels, library {lib_s:.3f} s "
+          f"vs numpy {np_s:.3f} s, equal within 1e-6; voxel_dedup "
+          f"{len(sel)} exact; radius_neighbors {len(q)} queries, "
+          f"{len(rows)} rows differ by near-ties only")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+
+PHASES = [("1", phase_1), ("2", phase_2), ("3a", phase_3a),
+          ("3b", phase_3b), ("4", phase_4), ("5", phase_5), ("6", phase_6),
+          ("7", phase_7), ("8", phase_8), ("9", phase_9), ("10", phase_10),
+          ("11", phase_11), ("12", phase_12), ("13", phase_13),
+          ("14", phase_14), ("15", phase_15), ("16", phase_16),
+          ("17", phase_17), ("18", phase_18), ("19", phase_19),
+          ("20", phase_20), ("21", phase_21), ("22", phase_22),
+          ("23", phase_23), ("24", phase_24), ("25", phase_25)]
+
+
+def selected_phases(spec):
+    """The phase ids a ``--phases`` value names: comma-separated numbers
+    or ranges ("3-5,16"); a number names all its lettered phases ("3" is
+    3a and 3b).  Phases 1 and 2 (the device, the build) always run."""
+    if spec is None:
+        return [pid for pid, _ in PHASES]
+    nums = set()
+    for item in spec.split(","):
+        lo, _, hi = item.strip().partition("-")
+        nums.update(range(int(lo), int(hi or lo) + 1))
+    chosen = [pid for pid, _ in PHASES
+              if pid in ("1", "2") or int(pid.rstrip("ab")) in nums]
+    if len(chosen) == 2 and not nums & {1, 2}:
+        raise SystemExit(f"chip_smoke.py: --phases {spec!r} names no phase")
+    return chosen
+
+
+def kernel_record(ctx):
+    """The kernels' JSON record: launches by path from this run, the
+    timings of phases 8 (K1), 11 (K2), 16 and 21 where they ran."""
+    def timing(t, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+        return {k: (t[k] if t else None) for k in keys}
+
+    return {"kernels": [
+        dict(K1, route="cuda", launches=sum(ctx.k1_launches.values()),
+             launches_by_path=dict(ctx.k1_launches), max_abs_err=ctx.k1_err,
+             **timing(ctx.k1_time), bound_by="bytes"),
+        dict(K2, route="cuda", launches=sum(ctx.k2_launches.values()),
+             launches_by_path=dict(ctx.k2_launches), max_abs_err=ctx.k2_err,
+             **timing(ctx.k2_time), bound_by="operations",
+             predator_train=timing(ctx.pt_step),
+             icp=timing(ctx.icp_shape, ("ms", "plain_ms", "bound_ms",
+                                        "ckdtree_query_ms"))),
     ]}
+
+
+def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", metavar="LIST",
+                    help="run only these phases (and 1, 2): numbers or "
+                         "ranges, comma-separated, e.g. 16,22-25; default "
+                         "every phase")
+    ap.add_argument("--k1-baseline", metavar="DIR",
+                    help="another checkout of this repo whose K1 (wrapper "
+                         "and kernel source) phases 3b and 8 time beside "
+                         "this one's")
+    args = ap.parse_args()
+    if not os.path.isdir(os.path.join(HERE, "apr_torch")):
+        sys.exit("chip_smoke.py: apr_torch/ not found next to this script; "
+                 "run it from the root of a checkout")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: no CUDA device; this script runs on the "
+                 "card only")
+    chosen = selected_phases(args.phases)
+    sys.path.insert(0, HERE)
+    t_all = time.perf_counter()
+    ctx = Shared(torch.device(DEVICE), args)
+    for pid, fn in PHASES:
+        if pid in chosen:
+            fn(ctx)
+
     print("(K1's times: the 7 searches of one eval batch build, one grouped "
           "launch; K2's: the 4 nn_min calls of one FCGF train step, "
           "partitions included, under predator_train those of one "
           "Predator train step, under icp one ICP search of phase 21; the "
           "launches of dp_fcgf, dp_predator, sharded_eval and pipeline are "
-          "summed over phase 22's two ranks)")
-    print(f"total {time.perf_counter() - t_all:.1f} s")
-    print(smi)
-    print(json.dumps(record))
+          "summed over phase 22's two ranks; null: the phase that times it "
+          "was not selected)")
+    print(f"phases {','.join(chosen)}: total "
+          f"{time.perf_counter() - t_all:.1f} s")
+    print(ctx.smi)
+    print(json.dumps(kernel_record(ctx)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

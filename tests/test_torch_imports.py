@@ -65,7 +65,12 @@ def test_every_module_imports_without_jax_or_the_reference():
             "apr_torch.parallel", "apr_torch.parallel.mesh",
             "apr_torch.parallel.collectives", "apr_torch.parallel.chamfer_sp",
             "apr_torch.parallel.pipeline", "apr_torch.parallel.launch",
-            "apr_torch.dryrun"} <= set(res["modules"])
+            "apr_torch.dryrun", "apr_torch.native",
+            "apr_torch.tools.validate_convergence",
+            "apr_torch.tools.validate_predator_convergence",
+            "apr_torch.tools.validate_apr_gain",
+            "apr_torch.tools.pool_apr_gain",
+            "apr_torch.tools.sweep_ransac"} <= set(res["modules"])
     assert len(res["modules"]) == len(list(pkgutil.walk_packages(
         apr_torch.__path__, "apr_torch."))) + 1
 

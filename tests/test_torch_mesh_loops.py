@@ -23,11 +23,16 @@ and the multi-device dry run.
   back to serial data parallelism (the ``num_devices=2`` run, bit for
   bit); a pipeline with 0 or all ranks building raises the reference's
   ValueError;
+- at the seeds whose loop has a ReLU input at a float32 tie (TIE_SEEDS),
+  the two-rank loop leaves the one-process loop's tolerance; with every
+  ReLU decision of the one-process loop pinned to the ranks', it is back
+  within that tolerance, and each decision the pins changed was a tie;
 - ``run_predator_training`` over 2 ranks: one pair per rank, the same
   state on both, rank 0 alone writes;
 - ``python -m apr_torch.dryrun 2 --device cpu`` prints its three lines.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -44,7 +49,8 @@ from apr_torch.data.pipeline import PairLoader
 from apr_torch.parallel import BuilderTrainerPipeline
 from apr_torch.parallel.launch import spawn
 from apr_torch.parallel.mesh import Mesh
-from test_torch_rank_bodies import LOOP_FIELDS, TINY, loop_scenarios, \
+from test_torch_rank_bodies import LOOP_FIELDS, TIE_SEEDS, TINY, \
+    ReluDecisions, kernel_move, loop_fields_json, loop_scenarios, \
     module_states, np_tree, tiny_datasets
 from test_torch_train import _close
 
@@ -77,6 +83,21 @@ def loops(tmp_path_factory):
         mp.setattr(loopmod, "get_trainer", make)
         cfg = APRConfig(**LOOP_FIELDS).replace(out_dir=str(tmp / "one"))
         summary = loopmod.run_training(cfg, device="cpu")
+        modules = module_states(made[-1])
+        ties = {}
+        for seed in TIE_SEEDS:
+            run = cfg.replace(seed=seed)
+            loopmod.run_training(run.replace(
+                out_dir=str(tmp / f"one_seed{seed}")), device="cpu")
+            free = module_states(made[-1])
+            pins = list(zip(*(r[f"dp_seed{seed}"]["relus"]
+                              for r in ranks)))
+            with ReluDecisions(pins) as relus:
+                loopmod.run_training(run.replace(
+                    out_dir=str(tmp / f"pinned_seed{seed}")), device="cpu")
+            ties[seed] = dict(free=free, pinned=module_states(made[-1]),
+                              moved=relus.ties, calls=len(relus.masks),
+                              pins=len(pins))
         loader = PairLoader(make_dataset(cfg, "train"), cfg, shuffle=True,
                             seed=cfg.seed, device="cpu")
         loader.set_epoch(0)
@@ -84,8 +105,8 @@ def loops(tmp_path_factory):
     finally:
         mp.undo()
         torch.set_num_threads(threads)
-    return dict(ranks=ranks, tmp=tmp, one=dict(
-        summary=summary, modules=module_states(made[0]), batches=batches))
+    return dict(ranks=ranks, tmp=tmp, ties=ties, one=dict(
+        summary=summary, modules=modules, batches=batches))
 
 
 def _leaves(tree):
@@ -132,6 +153,58 @@ def test_data_parallel_ranks_are_equal_and_match_one_process(loops):
     scale = max(float(np.abs(y).max()) for y in _leaves(one["modules"]))
     for x, y in zip(_leaves(a["modules"]), _leaves(one["modules"])):
         _close(x, y, scale=scale)
+
+
+# a ReLU input whose sign the ranks' summation order may flip: within this
+# much of 0, relative to the call's largest input (the two-rank and
+# one-process inputs differ by up to ~1e-6 of it)
+TIE = 1e-6
+
+
+@pytest.mark.parametrize("seed", TIE_SEEDS)
+def test_the_ranks_leave_one_process_only_at_float32_ties(loops, seed):
+    """At TIE_SEEDS a ReLU input of the train steps lies within rounding
+    of 0 and takes the other sign under the ranks' summation order; the
+    flipped element's gradient moves the two-rank loop out of the one-
+    process loop's tolerance.  With every ReLU decision of the one-process
+    loop pinned to the ranks' (ReluDecisions), the two loops agree within
+    the tolerance of test_data_parallel_ranks_are_equal_and_match_one_
+    process, and every decision the pins changed had an input within TIE
+    of 0: the mesh path computes the one-process loop's function."""
+    a, b = (r[f"dp_seed{seed}"] for r in loops["ranks"])
+    _assert_equal(a["modules"], b["modules"])
+    tie = loops["ties"][seed]
+    assert tie["calls"] == tie["pins"]
+    assert max(tie["moved"], default=0.0) <= TIE
+    want = tie["pinned"]
+    scale = max(float(np.abs(y).max()) for y in _leaves(want))
+    for x, y in zip(_leaves(a["modules"]), _leaves(want), strict=True):
+        _close(x, y, scale=scale)
+
+
+# the reference loop's own moves under a change of its float32 rounding,
+# per seed (written by tests/reference_loop_drift.py)
+REF_DRIFT = os.path.join(HERE, "reference_loop_drift.json")
+DRIFT_MULTIPLE = 4.0
+
+
+@pytest.mark.parametrize("seed", TIE_SEEDS)
+def test_tie_flips_move_the_loop_as_far_as_they_move_the_reference(loops,
+                                                                   seed):
+    """apr_tpu's own loop at ``seed`` moves a conv kernel under another
+    float32 rounding: on a 2-device mesh against one device, or from
+    initial weights nudged by about one ulp (REF_DRIFT, made at this
+    module's LOOP_FIELDS and TINY).  The port's two-rank loop moves from
+    its one-process loop by at most DRIFT_MULTIPLE times the larger of the
+    reference's two moves at that seed."""
+    with open(REF_DRIFT) as f:
+        ref = json.load(f)
+    assert {k: ref[k] for k in ("loop_fields", "tiny")} == \
+        loop_fields_json(), "stale: rerun tests/reference_loop_drift.py"
+    a = loops["ranks"][0][f"dp_seed{seed}"]
+    move = kernel_move(a["modules"], loops["ties"][seed]["free"])
+    want = max(ref["mesh"][str(seed)], ref["nudged"][str(seed)])
+    assert move <= DRIFT_MULTIPLE * want, (move, want)
 
 
 def test_the_ranks_loader_batches_make_the_one_process_batches(loops):

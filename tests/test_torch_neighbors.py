@@ -20,12 +20,15 @@ import torch
 from apr_tpu.data.synthetic import pad_points as ref_pad_points
 from apr_tpu.data.synthetic import synthetic_pair
 from apr_tpu.registration.matching import gt_correspondences as ref_gt
-from apr_torch.ops import hashing, neighbors, pooling, voxelize
 from apr_torch.registration.matching import gt_correspondences
 
-# the modules (apr_tpu.ops re-exports functions under some of these names)
+# the modules (both packages' ops re-export functions under some of these
+# names)
 ref_hashing, ref_nb, ref_pool, ref_vox = (
     importlib.import_module(f"apr_tpu.ops.{m}")
+    for m in ("hashing", "neighbors", "pooling", "voxelize"))
+hashing, neighbors, pooling, voxelize = (
+    importlib.import_module(f"apr_torch.ops.{m}")
     for m in ("hashing", "neighbors", "pooling", "voxelize"))
 
 T = torch.from_numpy

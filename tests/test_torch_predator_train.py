@@ -19,7 +19,14 @@ Tolerances, each with its reason:
   the weights), and the flip moves the gradients upstream of it by up to
   12% of a leaf's largest entry.  The weights' seed (WEIGHT_SEED) is one
   whose forward has no such input; seeds 0 and 2 have one (in the GCN's
-  cross attention and in the encoder);
+  cross attention and in the encoder).  That is a property of the
+  reference's own step, not a fault of the port:
+  ``test_weight_seed_zero_moves_as_the_reference_moves_under_a_nudge``
+  runs seed 0 and holds the port's distance from the reference to at
+  most NUDGE_MULTIPLE times the reference's own move under a 1e-6 nudge
+  of its weights (measured at seeds 0 / 1 / 2: the reference under the
+  nudge 2.8e-2 / 1.6e-2 / 1.2e-1 of a leaf's largest entry, the port
+  against the reference 2.8e-2 / 1.1e-5 / 1.2e-1, the same leaves);
 - the generator's running stats: within 1e-5; the frozen kernel points:
   bit for bit.
 The Adam and grouped steps are in tests/test_torch_predator_batched.py.
@@ -59,6 +66,7 @@ FIELDS = dict(
 STEP_KEY, VALID_KEY = 11, 12
 STEP_TOL = dict(rtol=1e-3, floor=1e-3)
 WEIGHT_SEED = 1
+NUDGE_MULTIPLE = 2.0
 
 
 def raw_pair(cfg, seed=0):
@@ -189,7 +197,8 @@ def run():
     valid = [ref_trainer.valid_step(state, ref_batch, valid_key,
                                     jnp.asarray(w)) for w in (0.0, 1.0)]
     trainer = port_trainer(cfg, state.params, state.batch_stats)
-    return dict(raw=raw, cfg=cfg, ref_batch=ref_batch, state=state,
+    return dict(raw=raw, cfg=cfg, ref_trainer=ref_trainer,
+                ref_batch=ref_batch, state=state,
                 state1=state1, metrics=metrics, valid=valid,
                 batch=trainer.build_batch(raw),
                 n_corr=int(ref_batch.corr_src.shape[0]))
@@ -293,3 +302,81 @@ def test_lr_schedule_optimizers_and_iter_size(run):
     assert acc.every_k == 2
     assert [g.shape for g in acc.grads] == [
         p.shape for g in trainer.optimizer.param_groups for p in g["params"]]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The port's steps on one torch thread: many small ops, whose time on
+    more threads grows with the other test workers' load."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_validate_predator_convergence_loop_matches_the_reference_tool(
+        run, monkeypatch, one_torch_thread):
+    """The first two steps of ``apr_torch.tools.
+    validate_predator_convergence``'s loop against the reference tool's
+    (tools/validate_predator_convergence.py:84-93: one key split a step
+    from ``PRNGKey(1)``; the saliency weight is 0 for the first half of
+    the steps), from the same weights with the draws replayed: every loss
+    term within 1e-4."""
+    from apr_torch.tools.validate_predator_convergence import train
+
+    state, ref_batch = run["state"], run["ref_batch"]
+    ref_trainer = run["ref_trainer"]
+    key, keys, want = jax.random.PRNGKey(1), [], []
+    for _ in range(2):
+        key, k = jax.random.split(key)
+        keys.append(k)
+        state, m = ref_trainer.train_step(state, ref_batch, k,
+                                          jnp.asarray(0.0))
+        want.append(m)
+    trainer = port_trainer(run["cfg"], run["state"].params,
+                           run["state"].batch_stats)
+    replay(monkeypatch, keys, run["n_corr"])
+    got = train(trainer, [run["batch"]], 2, None)
+    for g, w in zip(got, want, strict=True):
+        assert g["skipped_nonfinite"] == 0.0
+        for name, value in w.items():
+            _close(g[name], float(value), floor=0, what=name)
+
+
+def _leaf_move(a, b):
+    """The largest move of a gradient leaf of ``a`` from ``b``, over that
+    leaf's largest entry (plus 1e-6 of the largest of all leaves: the
+    biases in front of norms have analytically zero gradients)."""
+    top = max(float(v.abs().max()) for v in b.values())
+    return max(float((a[k].double() - b[k].double()).abs().max()
+                     / (b[k].abs().max() + 1e-6 * top)) for k in a)
+
+
+def test_weight_seed_zero_moves_as_the_reference_moves_under_a_nudge(
+        run, monkeypatch, one_torch_thread):
+    """At weight seed 0 a leaky-ReLU input of the GCN's cross attention
+    sits within rounding of its kink.  The reference's own step moves a
+    gradient leaf by more than 1e-2 of its largest entry under a 1e-6
+    relative nudge of its weights; the port's step differs from the
+    reference's by no more than NUDGE_MULTIPLE times that move."""
+    ref_trainer = run["ref_trainer"]
+    ref_batch, key = run["ref_batch"], jax.random.PRNGKey(STEP_KEY)
+    state = reference_state(ref_trainer, ref_batch, seed=0)
+
+    def ref_grads(params):
+        s1, _ = ref_trainer.train_step(state._replace(params=params),
+                                       ref_batch, key, jnp.asarray(1.0))
+        return ref_moments(s1.opt_state, state.params, state.batch_stats)
+
+    rng = np.random.default_rng(0)
+    nudged = jax.tree_util.tree_map(lambda x: (np.asarray(x) * (
+        1 + 1e-6 * rng.standard_normal(np.shape(x)))).astype(
+            np.asarray(x).dtype), state.params)
+    want, moved = ref_grads(state.params), ref_grads(nudged)
+    trainer = port_trainer(run["cfg"], state.params, state.batch_stats)
+    replay(monkeypatch, [key], run["n_corr"])
+    trainer.train_step(run["batch"], None, 1.0)
+    got = port_moments(trainer, "momentum_buffer")
+    reference_move = _leaf_move({k: moved[k] for k in got}, want)
+    assert reference_move > 1e-2
+    assert _leaf_move(got, want) <= NUDGE_MULTIPLE * reference_move

@@ -334,3 +334,36 @@ def test_bridge_is_strict_and_later_names_raise(run):
     loss, metrics = tri.loss_fn(run["batch"], torch.Generator().manual_seed(0))
     assert np.isfinite(float(loss.detach())) and float(
         metrics["neg_loss"]) == 0.0
+
+
+def test_validate_convergence_loop_matches_the_reference_tool(run):
+    """The first two steps of ``apr_torch.tools.validate_convergence``'s
+    loop against the reference tool's (tools/validate_convergence.py:94-
+    100: ``set_lr`` at step 0, then ``train_step`` with
+    ``PRNGKey(step)``), from the same weights with the draws replayed:
+    every loss term within the train step's tolerance."""
+    from apr_torch.tools.validate_convergence import train
+
+    ref_trainer, state = run["ref_trainer"], run["states"][0]
+    s = ref_trainer.set_lr(state, 0)
+    want = []
+    for step in range(2):
+        s, m = ref_trainer.train_step(s, run["ref_batch"],
+                                      jax.random.PRNGKey(step))
+        want.append(m)
+    trainer = FCGFTrainer(run["cfg"], device="cpu")
+    load_flax_train_state_(trainer, state.params, state.batch_stats)
+    mp = pytest.MonkeyPatch()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # many small ops: see test_torch_loop.py
+    try:
+        _replay(mp, [x for step in range(2) for x in _step_scores(
+            jax.random.PRNGKey(step), run["ref_batch"])])
+        got = train(trainer, [run["batch"]], 2, lambda step: None)
+    finally:
+        mp.undo()
+        torch.set_num_threads(threads)
+    for g, w in zip(got, want, strict=True):
+        assert g["skipped_nonfinite"] == 0.0
+        for name, value in w.items():
+            _close(g[name], float(value), floor=0, what=name)
