@@ -30,6 +30,9 @@ def add_common_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--kitti_root", type=str, default=None)
     ap.add_argument("--dataset", type=str, default=None)
     ap.add_argument("--LoKITTI", type=str2bool, default=None)
+    # test_fcgf takes it too: the nuScenes launchers pass it to both
+    # entries (the root scripts/test_fcgf.py refuses it)
+    ap.add_argument("--LoNUSCENES", type=str2bool, default=None)
     ap.add_argument("--pair_min_dist", type=float, default=None)
     ap.add_argument("--pair_max_dist", type=float, default=None)
     ap.add_argument("--num_pairs", type=int, default=None,
@@ -101,7 +104,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(description="apr_torch APR tester")
     add_common_flags(ap)
-    ap.add_argument("--LoNUSCENES", type=str2bool, default=None)
     ap.add_argument("--downsample_single", type=float, default=None)
     args = ap.parse_args(argv)
     return run_eval(eval_config(args), args)

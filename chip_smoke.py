@@ -122,8 +122,11 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    builder / trainer pipeline (1 + 1) for 3 steps against serial steps;
 23. ops: ``segment_mean_capped``, ``voxel_down_sample`` and
    ``grid_subsample`` on a 120000-point cloud at 0.3 m, twice on the card
-   and on the CPU, all bit for bit; the ``apr_torch.ops`` recipe
-   (voxelize, radius_neighbors, chamfer_distance);
+   and on the CPU, all bit for bit; ``bitonic_sort`` / ``bitonic_argsort``
+   on its voxel keys padded to 131072 as one row, and to [8, 32768],
+   twice on the card, against the CPU (bit for bit) and against
+   ``torch.sort``; the ``apr_torch.ops`` recipe (voxelize,
+   radius_neighbors, chamfer_distance);
 24. the synthetic-convergence tools at short settings through their
    mains: ``validate_convergence`` (8 steps, window and pallas Chamfer:
    one K1 launch a batch build, 4 K2 a pallas step),
@@ -131,7 +134,16 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    ``validate_apr_gain`` (4 steps, both arms) with ``pool_apr_gain`` on
    its log, and ``sweep_ransac`` on 4 pairs at one ratio;
 25. ``apr_torch.native``: the host library built with g++ at first use,
-   against its numpy fallbacks on a 120000-point cloud.
+   against its numpy fallbacks on a 120000-point cloud;
+26. the seven profilers (``apr_torch/tools/profile_*.py``,
+   ``probe_radius_select``) through their mains at their defaults with 2
+   iterations a stage, and ``profile_predator_sustained`` at phase 16's
+   config: every stage line, K1 / K2 launches per iteration (1 K1 a
+   FCGF build, 4 K2 a pallas train step, none on the Predator eval), and
+   the tools' step times (card busy ms) within 20% of the stage splits of
+   phases 10 and 16.
+The timers (``cuda_ms``, ``host_ms``, ``profiled``, ``stage_split``) are
+``apr_torch/utils/profiling.py``'s, the profilers' own.
 ``--phases`` runs a subset (phases 1 and 2 always run); timings of
 phases not selected are null in the record.  The line before the last is
 the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -147,6 +159,11 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if os.path.isdir(os.path.join(HERE, "apr_torch")):   # else main() stops
+    sys.path.insert(0, HERE)
+    # the timers the profilers use too (apr_torch/utils/profiling.py)
+    from apr_torch.utils.profiling import cuda_ms, device_line, host_ms, \
+        profiled, stage_split
 # the main path at full width (the sizes of bench.py's FCGF eval)
 DEVICE = "cuda"
 CAPS = (16384, 8192, 4096, 2048)
@@ -156,7 +173,6 @@ N_PAIRS = 8
 SUBSAMPLE = 5000
 HYPOTHESES = 32768
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
-SM_HZ = 1.98e9                   # H100 SXM boost clock: cycles of a sleep
 # H100 SXM float32 outside the tensor cores: 67 TFLOP/s counts a fused
 # multiply-add as two operations, so 3.35e13 instructions a second; K2's
 # subtractions, products and sums cannot fuse and count one each
@@ -227,48 +243,6 @@ def phase(name):
     return time.perf_counter()
 
 
-def host_ms(fn, reps=20, rounds=5):
-    """Host time to enqueue one call of ``fn``: the least over ``rounds``
-    of the mean over ``reps`` calls (no synchronisation inside a round).
-    The least, because the host's cores are shared and other work only
-    adds to a round."""
-    fn()
-    best = float("inf")
-    for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        best = min(best, (time.perf_counter() - t0) * 1e3 / reps)
-    torch.cuda.synchronize()
-    return best
-
-
-def cuda_ms(fn, reps, warmup=True):
-    """Mean device time of ``fn`` over ``reps`` launches, after a warm-up
-    (skipped for a call that takes seconds and needs none).  A sleep kernel
-    holds the card while the host enqueues the launches, so calls whose
-    device time is shorter than their host time are timed back to back on
-    the device and not at the host's pace."""
-    if warmup:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if warmup:
-        t0 = time.perf_counter()
-        fn()
-        enqueue_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(min(1.5 * reps * enqueue_s, 2.0) * SM_HZ))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def tree_map(fn, *trees):
     """``fn`` leafwise over tensors in nested tuples / NamedTuples."""
     if isinstance(trees[0], torch.Tensor):
@@ -276,33 +250,6 @@ def tree_map(fn, *trees):
     items = [tree_map(fn, *xs) for xs in zip(*trees)]
     return (type(trees[0])(*items) if hasattr(trees[0], "_fields")
             else tuple(items))
-
-
-def profiled(fn, x, inference=True):
-    """Run ``fn(x)`` under torch.profiler; returns (result, card busy ms,
-    kernel count, the three longest kernels by total time).  Busy time is
-    the sum of the device activities' durations (one stream: they do not
-    overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with torch.inference_mode(inference):
-            out = fn(x)
-        torch.cuda.synchronize()
-    # the optimizer's step and zero_grad also leave device-side user
-    # annotations: ranges, not kernels
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-    per_name = {}
-    for e in dev_events:
-        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:3]
-    busy = sum(per_name.values()) / 1e3
-    return out, busy, len(dev_events), "; ".join(
-        f"{n[:48]} {us / 1e3:.2f} ms" for n, us in top)
 
 
 def searches_of(lv, conv1_kernel_size):
@@ -1048,7 +995,7 @@ def predator_slice_phase(dev, pairs):
         raise AssertionError("non-finite RTE/RRE/fitness")
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = stage_split(dict(
+    x, _ = stage_split(dict(
         build=lambda _: tester._pair_to_batch(pairs[0]),
         forward=lambda b: (b, tester.forward(b)),
         eval=lambda bo: tester.eval_one(bo[1], bo[0], gen)),
@@ -1087,34 +1034,6 @@ def predator_k2_inputs(trainer, batch):
     return out
 
 
-def stage_split(stages, inference=False, unit="step"):
-    """One ``unit`` (a step, a pair) by stage, each stage synchronised at
-    its boundaries: host-clock wall (second repetition), then a profiled
-    repetition for the card's busy time, its kernel launches and the top
-    kernels.  Each stage takes the previous one's result; returns the
-    last."""
-    wall = {}
-    for rep in range(3):
-        x = None
-        for name, fn in stages.items():
-            if rep < 2:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with torch.inference_mode(inference):
-                    x = fn(x)
-                torch.cuda.synchronize()
-                wall[name] = (time.perf_counter() - t0) * 1e3
-            else:
-                x, busy, n_kern, top = profiled(fn, x, inference)
-                print(f"  {name:9s} wall {wall[name]:8.2f} ms  card busy "
-                      f"{busy:8.2f} ms (idle share "
-                      f"{1 - busy / wall[name]:.2f})  kernels {n_kern}  "
-                      f"top: {top}")
-    print(f"  {unit} total {sum(wall.values()):.2f} ms (wall, synchronised "
-          f"per stage; busy and launches from a separate profiled run)")
-    return x
-
-
 def predator_train_phase(dev):
     """Phase 16: PredatorTrainer.train_step at configs/train/kitti.yaml's
     full width on synthetic pairs (TRAIN_STEPS single-pair steps, w_saliency
@@ -1123,7 +1042,8 @@ def predator_train_phase(dev):
     chamfer_mode="window", one valid_step and one train_step_batched_fused
     at B = 2 (8 K2 launches: its pairs run one after another); then K2 at
     this step's shapes, exact against its plain version, timed against
-    its bound.  Returns (K2 launches of the single-pair steps, K2's rows)."""
+    its bound.  Returns (K2 launches of the single-pair steps, K2's rows,
+    the stage split's readings)."""
     from dataclasses import replace
 
     from apr_torch.config import APRConfig
@@ -1203,10 +1123,10 @@ def predator_train_phase(dev):
         trainer.optimizer.zero_grad(set_to_none=False)
         return trainer.loss_fn(b, gen, 1.0, True)
 
-    stage_split(dict(build=lambda _: trainer.build_batch(singles[0]),
-                     forward=forward,
-                     backward=lambda out: out[0].backward(),
-                     optimizer=lambda _: trainer.optimizer.step()))
+    _, split = stage_split(dict(
+        build=lambda _: trainer.build_batch(singles[0]), forward=forward,
+        backward=lambda out: out[0].backward(),
+        optimizer=lambda _: trainer.optimizer.step()))
 
     trainer.config = replace(c, chamfer_mode="window")
     nn_min.launches = 0
@@ -1258,7 +1178,7 @@ def predator_train_phase(dev):
     print("  K2 at this step's shapes (the 4 launches of one step):")
     rows = time_k2(predator_k2_inputs(trainer, trainer.build_batch(
         singles[0])))
-    return k2_pt, rows
+    return k2_pt, rows, split
 
 
 def bit_hash(t):
@@ -3136,6 +3056,7 @@ class Shared:
         self.k1_time = None            # phase 8's record (one eval build)
         self.k2_time = None            # phase 11's (one FCGF step)
         self.pt_step = None            # phase 16's (one Predator step)
+        self.splits = {}               # phases 10, 16: their stage splits
         self.icp_shape = None          # phase 21's (one ICP search)
         self.pairs_per_s = [float("nan"), float("nan")]
         self._made = {}
@@ -3413,7 +3334,7 @@ def phase_7(ctx):
         raise AssertionError("non-finite RTE/RRE/fitness")
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = stage_split(dict(
+    x, _ = stage_split(dict(
         build=lambda _: tester._pair_to_batch(pairs[0]),
         encode=lambda b: (b, trainer._encode_pair(b)),
         eval=lambda bf: tester.eval_one(
@@ -3524,10 +3445,10 @@ def phase_10(ctx):
         trainer_t.optimizer.zero_grad(set_to_none=False)
         return trainer_t.loss_fn(batch, gen, train=True)
 
-    stage_split(dict(build=lambda _: trainer_t.build_batch(raws[0]),
-                     forward=forward,
-                     backward=lambda out: out[0].backward(),
-                     optimizer=lambda _: trainer_t.optimizer.step()))
+    _, ctx.splits["fcgf"] = stage_split(dict(
+        build=lambda _: trainer_t.build_batch(raws[0]), forward=forward,
+        backward=lambda out: out[0].backward(),
+        optimizer=lambda _: trainer_t.optimizer.step()))
 
     cfg_w = replace(cfg_t, chamfer_mode="window")
     trainer_t.config = cfg_w
@@ -3609,7 +3530,8 @@ def phase_16(ctx):
     t = phase("16 Predator training slice: PredatorTrainer.train_step, "
               "kitti.yaml at full width, chamfer_mode=pallas, and the step "
               "twice bit for bit")
-    k2_pt, k2_pt_rows = predator_train_phase(ctx.dev)
+    k2_pt, k2_pt_rows, ctx.splits["predator"] = predator_train_phase(
+        ctx.dev)
     ctx.k1_launches["predator_train"] = 0
     ctx.k2_launches["predator_train"] = k2_pt
     ctx.k2_err = max([ctx.k2_err] + [r["max_abs_err"] for r in k2_pt_rows])
@@ -3686,6 +3608,7 @@ OPS_POINTS = 120000       # phase 23's LiDAR-scale cloud
 OPS_VOXEL = 0.3
 OPS_CAPACITY = 131072
 OPS_FEATURES = 32
+BITONIC_BATCH = (8, 32768)  # phase 23: the frame's keys as 8 sorted rows
 
 
 def phase_23(ctx):
@@ -3693,10 +3616,10 @@ def phase_23(ctx):
     two card runs bit for bit, the card against the CPU (masks and counts
     exact, floats bit for bit: each voxel's run adds in index order on
     both), and the package recipe."""
-    t = phase(f"23 ops: segment_mean_capped, voxel_down_sample and "
-              f"grid_subsample on a {OPS_POINTS}-point cloud at "
-              f"{OPS_VOXEL} m, card twice and against the CPU; the "
-              f"apr_torch.ops recipe")
+    t = phase(f"23 ops: segment_mean_capped, voxel_down_sample, "
+              f"grid_subsample and the bitonic network on a "
+              f"{OPS_POINTS}-point cloud at {OPS_VOXEL} m, card twice and "
+              f"against the CPU; the apr_torch.ops recipe")
     from apr_torch.data.synthetic import synthetic_pair
     from apr_torch.ops import chamfer_distance, grid_subsample, \
         radius_neighbors, segment_mean_capped, voxel_down_sample, voxelize
@@ -3742,6 +3665,7 @@ def phase_23(ctx):
                       reps=10)
     print(f"  card: grid_subsample {ms:.3f} ms, segment_mean_capped "
           f"{ms_mean:.3f} ms (mean of 10)")
+    bitonic_on_voxel_keys(pts_h, mask_h, dev)
 
     g0 = voxelize(pts, OPS_VOXEL, OPS_CAPACITY, mask)
     g1 = voxelize(torch.from_numpy(pair["points1"])[None].to(dev), OPS_VOXEL,
@@ -3758,6 +3682,44 @@ def phase_23(ctx):
             and bool(torch.isfinite(cd).all())):
         raise AssertionError("the ops recipe failed")
     print(f"  phase {time.perf_counter() - t:.1f} s")
+
+
+def bitonic_on_voxel_keys(pts_h, mask_h, dev):
+    """E4's bitonic network on the frame's voxel keys with an INVALID
+    tail: bitonic_sort and bitonic_argsort over one row of OPS_CAPACITY
+    and over BITONIC_BATCH rows (profile_sort's batched shape), twice on
+    the card bit for bit, equal to the CPU's, keys equal to
+    torch.sort's."""
+    from apr_torch.ops.hashing import INVALID_KEY
+    from apr_torch.ops.sort import bitonic_argsort, bitonic_sort
+    from apr_torch.ops.voxelize import _voxel_keys
+
+    k = _voxel_keys(pts_h, OPS_VOXEL, mask_h)[0]
+    for shape in ((OPS_CAPACITY,), BITONIC_BATCH):
+        x_h = torch.full((int(np.prod(shape)),), INVALID_KEY,
+                         dtype=torch.int32)
+        x_h[:k.shape[0]] = k
+        x_h = x_h.reshape(shape)
+        x = x_h.to(dev)
+        runs = [(bitonic_sort(x)[0], *bitonic_argsort(x)) for _ in range(2)]
+        cpu = (bitonic_sort(x_h)[0], *bitonic_argsort(x_h))
+        want = torch.sort(x, dim=-1).values
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        vs_cpu = all(torch.equal(a.cpu(), c) for a, c in zip(runs[0], cpu))
+        sorted_ok = (torch.equal(runs[0][0], want)
+                     and torch.equal(runs[0][1], want)
+                     and torch.equal(torch.gather(x, -1, runs[0][2].long()),
+                                     want))
+        ms = cuda_ms(lambda: bitonic_argsort(x), reps=3)
+        print(f"  bitonic_sort / bitonic_argsort {list(shape)} "
+              f"({int((x_h != INVALID_KEY).sum())} keys): card twice "
+              f"{'bit for bit' if same else 'DIFFER'}, card vs CPU "
+              f"{'bit for bit' if vs_cpu else 'DIFFER'}, keys "
+              f"{'equal' if sorted_ok else 'NOT equal'} to torch.sort's; "
+              f"argsort {ms:.3f} ms on the card")
+        if not (same and vs_cpu and sorted_ok):
+            raise AssertionError(f"the bitonic network on {list(shape)} "
+                                 f"voxel keys failed")
 
 
 def run_tool(module, argv, log=None):
@@ -3899,6 +3861,135 @@ def phase_25(ctx):
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
 
+PROFILER_K = 2          # phase 26: iterations of each profiler stage
+# phase 26: |tool / phase - 1| of a step's card busy ms, the tools' against
+# the stage splits of phases 10 and 16.  Busy, not wall: the Predator step
+# is host-launch bound, and its wall moved from 239 to 365 ms a step
+# between two runs at the same 160 ms busy (one H100 80GB HBM3, 700 W)
+READS_ALIKE = 0.2
+# K1 / K2 launches of one profiled iteration of each stage phase 26
+# asserts (every other stage of the seven tools launches neither)
+PROFILER_LAUNCHES = {
+    "profile_build": {"full build": (1, 0),
+                      "build w/o GT correspondences": (1, 0),
+                      "pyramids+maps only (2B fold)": (1, 0)},
+    "profile_pyramid": {"voxelize + build_pyramid x8": (1, 0),
+                        "voxelize + conv1 map z-run x8": (1, 0),
+                        "levels + pyramid_searches + grouped K1 x8": (1, 0),
+                        "levels + searches + K1 + zrun_decode x8": (1, 0)},
+    "profile_train_step": {"full train_step": (0, 4),
+                           "sustained (batch build + step)": (1, 4),
+                           "chamfer fwd+bwd 8x [pallas]": (0, 2)},
+    "profile_predator_sustained at phase 16's config": {
+        "train step (batch prebuilt)": (0, 4),
+        "sustained (build + step)": (0, 4)},
+}
+
+
+def phase_26(ctx):
+    """The seven profilers through their mains at their defaults with
+    PROFILER_K iterations a stage (profile_train_step with the pallas
+    Chamfer and the sustained stage), then profile_predator_sustained at
+    phase 16's config: every stage line printed, K1 / K2 launches per
+    iteration as PROFILER_LAUNCHES says, and the tools' step times within
+    READS_ALIKE of phases 10 and 16's stage splits in card busy ms."""
+    t = phase("26 profilers: profile_build, profile_pyramid, "
+              "profile_train_step, profile_predator, "
+              "profile_predator_sustained, profile_sort, "
+              "probe_radius_select")
+    import tempfile
+
+    from apr_torch.tools import profile_predator_sustained, profile_pyramid
+
+    k = str(PROFILER_K)
+    on = ["--device", ctx.dev.type]
+    card = device_line(ctx.dev)       # every tool's header names the card
+    runs = [
+        ("profile_build", ["--k", k]),
+        ("profile_pyramid", []),
+        ("profile_train_step", ["--k", k, "--chamfer", "pallas", "--only",
+                                "step,sustained,nogen,fwd,fwd2x,chamfer"]),
+        ("profile_predator", ["--iters", k]),
+        ("profile_predator_sustained", ["--k", k]),
+        ("profile_sort", ["--k", k]),
+        ("probe_radius_select", ["--iters", k]),
+        ("profile_predator_sustained at phase 16's config",
+         ["--k", k, "--points", str(PT_PAIR["n_points"]), "--apc",
+          str(PT_FIELDS["apc_capacity"])]),
+    ]
+    saved = (profile_pyramid.K, profile_predator_sustained.CONFIG,
+             profile_predator_sustained.PAIR)
+    rows_of, k1_all, k2_all = {}, 0, 0
+    try:
+        profile_pyramid.K = PROFILER_K
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, argv in runs:
+                module = name.split()[0]
+                if name != module:
+                    profile_predator_sustained.CONFIG = {
+                        f: v for f, v in PT_FIELDS.items()
+                        if f != "apc_capacity"}
+                    profile_predator_sustained.PAIR = dict(
+                        seed=300, distance=PT_PAIR["distance"],
+                        extent=PT_PAIR["extent"],
+                        apc_points=PT_PAIR["apc_points"])
+                log = os.path.join(tmp, module + ".log")
+                t0 = time.perf_counter()
+                rows, k1, k2 = run_tool(module, argv + on, log)
+                k1_all, k2_all = k1_all + k1, k2_all + k2
+                with open(log) as f:
+                    text = f.read()
+                missing = [r.label for r in rows if r.label not in text]
+                print(f"  {name}: {time.perf_counter() - t0:.1f} s, "
+                      f"{len(rows)} stages, K1 {k1}, K2 {k2} in all")
+                if not rows or missing or card not in text:
+                    raise AssertionError(f"{name}: no stage lines or no "
+                                         f"card line ({missing})")
+                want = PROFILER_LAUNCHES.get(name, {})
+                for r in rows:
+                    if (r.k1, r.k2) != want.get(r.label, (0, 0)):
+                        raise AssertionError(
+                            f"{name} [{r.label}]: K1 {r.k1} / K2 {r.k2} in "
+                            f"one iteration, want "
+                            f"{want.get(r.label, (0, 0))}")
+                if set(want) - {r.label for r in rows}:
+                    raise AssertionError(f"{name}: stages missing: "
+                                         f"{set(want) - {r.label for r in rows}}")
+                rows_of[name] = {r.label: r for r in rows}
+    finally:
+        (profile_pyramid.K, profile_predator_sustained.CONFIG,
+         profile_predator_sustained.PAIR) = saved
+    ctx.k1_launches["profilers"] = k1_all
+    ctx.k2_launches["profilers"] = k2_all
+
+    step_of = (("forward", "backward", "optimizer"),
+               ("build", "forward", "backward", "optimizer"))
+    checks = [("fcgf", "profile_train_step", "full train_step", 0, 10),
+              ("fcgf", "profile_train_step", "sustained (batch build + step)",
+               1, 10),
+              ("predator", "profile_predator_sustained at phase 16's config",
+               "train step (batch prebuilt)", 0, 16),
+              ("predator", "profile_predator_sustained at phase 16's config",
+               "sustained (build + step)", 1, 16)]
+    for path, name, label, with_build, pid in checks:
+        if path not in ctx.splits:
+            print(f"  {name} [{label}]: not compared (phase {pid} not "
+                  f"selected)")
+            continue
+        row, split = rows_of[name][label], ctx.splits[path]
+        busy = sum(split[stage][1] for stage in step_of[with_build])
+        wall = sum(split[stage][0] for stage in step_of[with_build])
+        print(f"  reads alike: {name} [{label}] busy {row.busy_ms:.1f} ms "
+              f"against phase {pid}'s stage split {busy:.1f} ms "
+              f"({row.busy_ms / busy - 1:+.1%}, bound +-{READS_ALIKE:.0%}); "
+              f"wall {row.wall_ms:.1f} against {wall:.1f} ms "
+              f"({row.wall_ms / wall - 1:+.1%}, not bounded)")
+        if abs(row.busy_ms / busy - 1) > READS_ALIKE:
+            raise AssertionError(f"{name} [{label}] does not read alike "
+                                 f"with phase {pid}")
+    print(f"  phase {time.perf_counter() - t:.1f} s")
+
+
 PHASES = [("1", phase_1), ("2", phase_2), ("3a", phase_3a),
           ("3b", phase_3b), ("4", phase_4), ("5", phase_5), ("6", phase_6),
           ("7", phase_7), ("8", phase_8), ("9", phase_9), ("10", phase_10),
@@ -3906,7 +3997,8 @@ PHASES = [("1", phase_1), ("2", phase_2), ("3a", phase_3a),
           ("14", phase_14), ("15", phase_15), ("16", phase_16),
           ("17", phase_17), ("18", phase_18), ("19", phase_19),
           ("20", phase_20), ("21", phase_21), ("22", phase_22),
-          ("23", phase_23), ("24", phase_24), ("25", phase_25)]
+          ("23", phase_23), ("24", phase_24), ("25", phase_25),
+          ("26", phase_26)]
 
 
 def selected_phases(spec):
@@ -3965,7 +4057,6 @@ def main():
         sys.exit("chip_smoke.py: no CUDA device; this script runs on the "
                  "card only")
     chosen = selected_phases(args.phases)
-    sys.path.insert(0, HERE)
     t_all = time.perf_counter()
     ctx = Shared(torch.device(DEVICE), args)
     for pid, fn in PHASES:

@@ -70,9 +70,50 @@ def test_every_module_imports_without_jax_or_the_reference():
             "apr_torch.tools.validate_predator_convergence",
             "apr_torch.tools.validate_apr_gain",
             "apr_torch.tools.pool_apr_gain",
-            "apr_torch.tools.sweep_ransac"} <= set(res["modules"])
+            "apr_torch.tools.sweep_ransac", "apr_torch.ops.sort",
+            "apr_torch.utils.profiling", "apr_torch.tools.profile_build",
+            "apr_torch.tools.profile_pyramid",
+            "apr_torch.tools.profile_train_step",
+            "apr_torch.tools.profile_predator",
+            "apr_torch.tools.profile_predator_sustained",
+            "apr_torch.tools.profile_sort",
+            "apr_torch.tools.probe_radius_select",
+            "apr_torch.tools.export_nuscenes_kitti"} <= set(res["modules"])
     assert len(res["modules"]) == len(list(pkgutil.walk_packages(
         apr_torch.__path__, "apr_torch."))) + 1
+
+
+LAUNCHERS = [f"{kind}_{family}_{data}.sh" for kind in ("train", "test")
+             for family in ("apr", "fcgf") for data in ("kitti", "nuscenes")]
+
+
+@pytest.mark.parametrize("name", LAUNCHERS)
+def test_launchers_call_the_port_only(name):
+    """Each port launcher calls ``python -m apr_torch...`` and neither the
+    root ``train.py`` nor the root ``scripts`` package."""
+    with open(os.path.join(_ROOT, "apr_torch", "scripts", name)) as f:
+        calls = [line.strip() for line in f
+                 if line.strip().startswith("python")]
+    assert len(calls) == 1
+    assert calls[0].startswith("python -m apr_torch.")
+    assert "train.py" not in calls[0] and " scripts." not in calls[0]
+
+
+PROFILERS = ["profile_build", "profile_pyramid", "profile_train_step",
+             "profile_predator", "profile_predator_sustained",
+             "profile_sort", "probe_radius_select"]
+
+
+@pytest.mark.parametrize("name", PROFILERS)
+def test_profilers_default_to_the_card(name, monkeypatch):
+    """Without a card a profiler given no --device raises before any
+    work, as every entry point does."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tool = importlib.import_module(f"apr_torch.tools.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tool.main([])
 
 
 def test_tf32_is_off():
