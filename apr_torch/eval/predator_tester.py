@@ -5,7 +5,9 @@ of ``test_subsample`` points drawn without replacement with probability
 proportional to overlap * saliency (a Gumbel top-k); feature-NN
 correspondences from the sampled points of cloud 0 to those of cloud 1;
 RANSAC (threshold 0.3 m, 4-point tuples); RTE / RRE against the ground
-truth.  ``test`` (pipelined or not) is :class:`FeatureTester`'s.
+truth.  ``test`` (pipelined or not) is :class:`FeatureTester`'s, and so
+are the spans: ``encode`` is the KPFCNN call, ``match`` the two samples
+and the feature NN.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from apr_torch.registration.matching import feature_nn_correspondences
 from apr_torch.registration.metrics import registration_errors
 from apr_torch.registration.ransac import ransac_from_draws, ransac_pose
 from apr_torch.training.predator import KPPairBatch, make_kp_pair_batch
+from apr_torch.utils.profiling import span
 
 
 def weighted_sample(scores: torch.Tensor, mask: torch.Tensor, n: int,
@@ -49,7 +52,8 @@ class PredatorTester(FeatureTester):
 
     @torch.inference_mode()
     def forward(self, batch: KPPairBatch) -> KPFCNNOutputs:
-        return self.trainer.model(batch.pyr0, batch.pyr1)
+        with span("encode"):
+            return self.trainer.model(batch.pyr0, batch.pyr1)
 
     @torch.inference_mode()
     def eval_one(self, out: KPFCNNOutputs, batch: KPPairBatch,
@@ -68,16 +72,17 @@ class PredatorTester(FeatureTester):
         m1 = batch.pyr1.levels[0].mask
         xyz0 = batch.pyr0.levels[0].points
         xyz1 = batch.pyr1.levels[0].points
-        if uniforms is None:
-            uniforms = tuple(torch.clamp(torch.rand(
-                m.shape, generator=generator, device=m.device), min=1e-12)
-                for m in (m0, m1))
-        s0 = weighted_sample(out.overlap0 * out.saliency0, m0,
-                             c.test_subsample, uniforms[0])
-        s1 = weighted_sample(out.overlap1 * out.saliency1, m1,
-                             c.test_subsample, uniforms[1])
-        corr = feature_nn_correspondences(out.feats0, out.feats1, s0, s1)
-        tgt_pts = xyz1[corr.tgt_idx.clamp(0, xyz1.shape[0] - 1).long()]
+        with span("match"):
+            if uniforms is None:
+                uniforms = tuple(torch.clamp(torch.rand(
+                    m.shape, generator=generator, device=m.device),
+                    min=1e-12) for m in (m0, m1))
+            s0 = weighted_sample(out.overlap0 * out.saliency0, m0,
+                                 c.test_subsample, uniforms[0])
+            s1 = weighted_sample(out.overlap1 * out.saliency1, m1,
+                                 c.test_subsample, uniforms[1])
+            corr = feature_nn_correspondences(out.feats0, out.feats1, s0, s1)
+            tgt_pts = xyz1[corr.tgt_idx.clamp(0, xyz1.shape[0] - 1).long()]
         kw = dict(distance_threshold=0.3, ransac_n=4,
                   escalation_min_inliers=c.test_ransac_escalation_min_inliers,
                   escalation_confidence=c.test_ransac_escalation_confidence)

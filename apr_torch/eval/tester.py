@@ -5,6 +5,9 @@ forward on both clouds; a random 5000-point subsample of cloud 0;
 feature-space NN correspondences; feature-matching RANSAC with threshold =
 voxel size; RTE/RRE against the ground truth; success = RTE < 2 m and
 RRE < 5 deg.  Everything after the host-side padding runs on the device.
+A pair's spans (:func:`apr_torch.utils.profiling.span`): the build's
+three, ``encode``, ``match`` (the subsample and the feature NN) and
+``ransac``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from apr_torch.registration.matching import feature_nn_correspondences
 from apr_torch.registration.metrics import registration_errors
 from apr_torch.registration.ransac import ransac_from_draws, ransac_pose
 from apr_torch.training.batching import make_pair_batch
+from apr_torch.utils.profiling import span
 from apr_torch.utils.timer import Timer
 
 log = logging.getLogger(__name__)
@@ -101,17 +105,19 @@ class FeatureTester:
         c = self.config
         thresh = c.test_ransac_dist_thresh or c.voxel_size
         n_sub = min(c.test_subsample, m0.shape[0])
-        if scores is None:
-            scores = torch.where(
-                m0, torch.rand(m0.shape, generator=generator,
-                               device=m0.device), -1.0)
-        # the n_sub largest scores in descending order, ties to the lower
-        # index as the reference's top-k orders them (a stable sort; topk
-        # leaves the order of ties open): RANSAC's draws index this order
-        top, sel = torch.sort(scores, descending=True, stable=True)
-        top, sel = top[:n_sub], sel[:n_sub]
-        corr = feature_nn_correspondences(f0[sel], f1, top >= 0.0, m1)
-        tgt_pts = xyz1[corr.tgt_idx.clamp(0, xyz1.shape[0] - 1).long()]
+        with span("match"):
+            if scores is None:
+                scores = torch.where(
+                    m0, torch.rand(m0.shape, generator=generator,
+                                   device=m0.device), -1.0)
+            # the n_sub largest scores in descending order, ties to the
+            # lower index as the reference's top-k orders them (a stable
+            # sort; topk leaves the order of ties open): RANSAC's draws
+            # index this order
+            top, sel = torch.sort(scores, descending=True, stable=True)
+            top, sel = top[:n_sub], sel[:n_sub]
+            corr = feature_nn_correspondences(f0[sel], f1, top >= 0.0, m1)
+            tgt_pts = xyz1[corr.tgt_idx.clamp(0, xyz1.shape[0] - 1).long()]
         kw = dict(distance_threshold=thresh, ransac_n=4,
                   escalation_min_inliers=c.test_ransac_escalation_min_inliers,
                   escalation_confidence=c.test_ransac_escalation_confidence)

@@ -99,9 +99,19 @@ def build_kp_pyramid(
     window and that fell back.
     """
     grids = voxelize_pyramid(points, first_subsampling_dl, capacities, mask)
+    return kp_pyramid_tables(grids, first_subsampling_dl * conv_radius,
+                             num_levels, neighbor_limits, overflow_fallback)
+
+
+def kp_pyramid_tables(grids, radius: float, num_levels: int,
+                      neighbor_limits: Sequence[int],
+                      overflow_fallback: bool = True) -> KPPyramid:
+    """:func:`build_kp_pyramid` after the voxelization: every level's conv,
+    pool and upsample tables over ``grids`` (``voxelize_pyramid``'s
+    levels), the conv radius ``radius`` (metres) at level 0."""
     pts = [g.barycenter for g in grids]
     msk = [g.mask for g in grids]
-    b = points.shape[0]
+    b = pts[0].shape[0]
     pending = []   # (windowed output, overflow [B], exact-search arguments)
 
     def search(q, s, r, cap, q_mask, s_mask):
@@ -116,7 +126,7 @@ def build_kp_pyramid(
         return out
 
     levels = []
-    r = first_subsampling_dl * conv_radius
+    r = radius
     for lvl in range(num_levels):
         nb = search(pts[lvl], pts[lvl], r, neighbor_limits[lvl], msk[lvl],
                     msk[lvl])
@@ -127,7 +137,7 @@ def build_kp_pyramid(
                         s_mask=msk[lvl + 1])
         else:
             pools = torch.zeros((b, 1, 1), dtype=torch.int32,
-                                device=points.device)
+                                device=pts[0].device)
             up = pools.clone()
         levels.append(KPLevel(points=pts[lvl], mask=msk[lvl], neighbors=nb,
                               pools=pools, upsamples=up))

@@ -10,17 +10,24 @@ role of Open3D's local refinement.
 
 Drawing is split from using: :func:`ransac_pose` draws the index tuples
 from a ``torch.Generator`` and hands them to :func:`ransac_from_draws`, so
-a test can feed the reference's own random numbers.
+a test can feed the reference's own random numbers.  Either call is one
+``ransac`` span (:func:`apr_torch.utils.profiling.span`), and
+``ransac_from_draws.hypotheses`` counts the hypotheses scored, from every
+thread: stage 1 and each escalation rung that ran, known on the host.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import List, NamedTuple, Optional
 
 import torch
 
 from apr_torch.geometry.kabsch import _det3, kabsch, kabsch_fast
 from apr_torch.geometry.se3 import apply_transform
+from apr_torch.utils.profiling import span
+
+_count_lock = threading.Lock()
 
 
 class RansacResult(NamedTuple):
@@ -83,6 +90,24 @@ def ransac_from_draws(
     ``escalation_min_inliers`` inliers or, with ``escalation_confidence``
     in (0, 1), when fewer trials than Open3D's stopping count have run.
     """
+    with span("ransac"):
+        return _ransac(src_xyz, tgt_xyz, corr_mask, stage_draws,
+                       distance_threshold, ransac_n, edge_length_similarity,
+                       hypothesis_chunk, escalation_min_inliers,
+                       escalation_confidence)
+
+
+def _count_hypotheses(n: int) -> None:
+    """``n`` more in ``ransac_from_draws.hypotheses``, exact when several
+    threads register."""
+    with _count_lock:
+        ransac_from_draws.hypotheses += n
+
+
+def _ransac(src_xyz, tgt_xyz, corr_mask, stage_draws, distance_threshold,
+            ransac_n, edge_length_similarity, hypothesis_chunk,
+            escalation_min_inliers, escalation_confidence) -> RansacResult:
+    """:func:`ransac_from_draws`'s body, outside its span."""
     m = src_xyz.shape[0]
     dev = src_xyz.device
     if corr_mask is None:
@@ -142,6 +167,7 @@ def ransac_from_draws(
 
     best_score, best_t = run_stage(stage_draws[0])
     n_done = stage_draws[0].shape[0]
+    scored = n_done
     for draws in stage_draws[1:]:
         # score = n_inl - rmse/(rmse+1), the penalty in [0, 1): score < k
         # <=> best inlier count <= k for the integer thresholds used here
@@ -155,7 +181,9 @@ def ransac_from_draws(
             better = s1 > best_score
             best_score = torch.where(better, s1, best_score)
             best_t = torch.where(better, t1, best_t)
+            scored += draws.shape[0]
         n_done += draws.shape[0]
+    _count_hypotheses(scored)
 
     # local refinement: weighted Kabsch on the best hypothesis' inliers
     for _ in range(3):
@@ -174,6 +202,9 @@ def ransac_from_draws(
                                / torch.clamp(n_inl, min=1)),
         inliers=inliers,
     )
+
+
+ransac_from_draws.hypotheses = 0
 
 
 def draw_stages(generator: torch.Generator, n_valid: torch.Tensor,
@@ -214,12 +245,9 @@ def ransac_pose(
                                device=src_xyz.device)
     sizes = stage_sizes(num_hypotheses, hypothesis_chunk, escalation_factor,
                         escalation_rungs)
-    draws = draw_stages(generator, corr_mask.sum(), sizes, ransac_n)
-    return ransac_from_draws(
-        src_xyz, tgt_xyz, corr_mask, draws,
-        distance_threshold=distance_threshold, ransac_n=ransac_n,
-        edge_length_similarity=edge_length_similarity,
-        hypothesis_chunk=hypothesis_chunk,
-        escalation_min_inliers=escalation_min_inliers,
-        escalation_confidence=escalation_confidence,
-    )
+    with span("ransac"):
+        draws = draw_stages(generator, corr_mask.sum(), sizes, ransac_n)
+        return _ransac(src_xyz, tgt_xyz, corr_mask, draws,
+                       distance_threshold, ransac_n, edge_length_similarity,
+                       hypothesis_chunk, escalation_min_inliers,
+                       escalation_confidence)

@@ -4,7 +4,11 @@ and the APC target dedup.
 
 Both sides of every pair ride one 2B-cloud build: one voxelization and one
 pyramid build whose kernel-map searches each serve all 2B clouds in a
-single launch, and one APC dedup.
+single launch, and one APC dedup.  A build is three spans
+(:func:`apr_torch.utils.profiling.span`): ``build.voxelize`` (the copies
+in, the voxels and their points), ``build.maps`` (the pyramid and its
+kernel maps) and ``build.corr`` (the GT correspondences and the APC
+targets).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from apr_torch.models.sparse import SparseLevel, SparsePyramid, \
     build_pyramid_from_level
 from apr_torch.ops.voxelize import dedup_points, voxelize_lean
 from apr_torch.registration.matching import gt_correspondences
+from apr_torch.utils.profiling import span
 
 
 class PairBatch(NamedTuple):
@@ -74,42 +79,46 @@ def make_pair_batch(
     def put(x, dtype):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
-    p0, p1 = put(points0, torch.float32), put(points1, torch.float32)
-    m0, m1 = put(mask0, torch.bool), put(mask1, torch.bool)
-    t_gt = put(t_gt, torch.float32)
-    b, n = p0.shape[:2]
-    pts = torch.cat([p0, p1], dim=0)
-    coords, keys, vmask, rep = voxelize_lean(
-        pts, voxel_size, capacities[0], torch.cat([m0, m1], dim=0))
-    pyr = build_pyramid_from_level(SparseLevel(coords, keys, vmask),
-                                   capacities, conv1_kernel_size)
-    # representative point per voxel (ME sparse_quantize 'sel' parity)
-    xyz = torch.gather(pts, 1, rep.clamp(max=n - 1).long()[..., None]
-                       .expand(-1, -1, 3))
-    xyz = torch.where((rep < n)[..., None], xyz, 0.0)
-    feats = vmask[..., None].to(torch.float32)
+    with span("build.voxelize"):
+        p0, p1 = put(points0, torch.float32), put(points1, torch.float32)
+        m0, m1 = put(mask0, torch.bool), put(mask1, torch.bool)
+        t_gt = put(t_gt, torch.float32)
+        b, n = p0.shape[:2]
+        pts = torch.cat([p0, p1], dim=0)
+        coords, keys, vmask, rep = voxelize_lean(
+            pts, voxel_size, capacities[0], torch.cat([m0, m1], dim=0))
+        # representative point per voxel (ME sparse_quantize 'sel' parity)
+        xyz = torch.gather(pts, 1, rep.clamp(max=n - 1).long()[..., None]
+                           .expand(-1, -1, 3))
+        xyz = torch.where((rep < n)[..., None], xyz, 0.0)
+        feats = vmask[..., None].to(torch.float32)
 
-    if with_correspondences:
-        corr = gt_correspondences(
-            xyz[:b], xyz[b:], t_gt, radius=voxel_size * search_multiplier,
-            cap_per_point=corr_cap, mask0=vmask[:b], mask1=vmask[b:])
-        pos_src, pos_tgt, pos_mask = corr
-    else:
-        pos_src = pos_tgt = torch.zeros((b, 1), dtype=torch.int32,
-                                        device=dev)
-        pos_mask = torch.zeros((b, 1), dtype=torch.bool, device=dev)
+    with span("build.maps"):
+        pyr = build_pyramid_from_level(SparseLevel(coords, keys, vmask),
+                                       capacities, conv1_kernel_size)
 
-    apc0, apc1 = put(apc0, torch.float32), put(apc1, torch.float32)
-    apc0_mask, apc1_mask = put(apc0_mask, torch.bool), put(apc1_mask,
-                                                           torch.bool)
-    if apc0.shape[1] > 8:
-        # voxel-dedup the APC targets (reference sel_nghb quantization),
-        # both sides in one call
-        apc, apc_mask = dedup_points(torch.cat([apc0, apc1], dim=0),
-                                     voxel_size,
-                                     torch.cat([apc0_mask, apc1_mask], 0))
-        apc0, apc1 = apc[:b], apc[b:]
-        apc0_mask, apc1_mask = apc_mask[:b], apc_mask[b:]
+    with span("build.corr"):
+        if with_correspondences:
+            corr = gt_correspondences(
+                xyz[:b], xyz[b:], t_gt, radius=voxel_size * search_multiplier,
+                cap_per_point=corr_cap, mask0=vmask[:b], mask1=vmask[b:])
+            pos_src, pos_tgt, pos_mask = corr
+        else:
+            pos_src = pos_tgt = torch.zeros((b, 1), dtype=torch.int32,
+                                            device=dev)
+            pos_mask = torch.zeros((b, 1), dtype=torch.bool, device=dev)
+
+        apc0, apc1 = put(apc0, torch.float32), put(apc1, torch.float32)
+        apc0_mask, apc1_mask = put(apc0_mask, torch.bool), put(apc1_mask,
+                                                               torch.bool)
+        if apc0.shape[1] > 8:
+            # voxel-dedup the APC targets (reference sel_nghb
+            # quantization), both sides in one call
+            apc, apc_mask = dedup_points(torch.cat([apc0, apc1], dim=0),
+                                         voxel_size,
+                                         torch.cat([apc0_mask, apc1_mask], 0))
+            apc0, apc1 = apc[:b], apc[b:]
+            apc0_mask, apc1_mask = apc_mask[:b], apc_mask[b:]
 
     return PairBatch(
         pyramid0=_slice_tree(pyr, slice(0, b)),

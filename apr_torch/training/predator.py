@@ -38,15 +38,16 @@ from apr_torch.config import APRConfig
 from apr_torch.device import resolve_device
 from apr_torch.losses.circle import metric_loss
 from apr_torch.losses.generative import npr_reconstruction
-from apr_torch.models.kpconv import KPPyramid, build_kp_pyramid, \
+from apr_torch.models.kpconv import KPPyramid, kp_pyramid_tables, \
     reset_kp_parameters_, select_cloud
 from apr_torch.models.kpfcnn import KPFCNN, KPFCNNDecoder
 from apr_torch.models.mlp import make_generative_mlp
-from apr_torch.ops.voxelize import dedup_points
+from apr_torch.ops.voxelize import dedup_points, voxelize_pyramid
 from apr_torch.parallel.collectives import all_reduce_
 from apr_torch.parallel.mesh import pair_generators
 from apr_torch.registration.matching import gt_correspondences
 from apr_torch.training.train_state import TrainerState
+from apr_torch.utils.profiling import span
 
 
 class KPPairBatch(NamedTuple):
@@ -91,29 +92,38 @@ def make_kp_pairs(
     level-0 points (``corr_cap`` per source point) and the
     voxel-deduplicated APC targets (skipped for placeholders of 8 rows or
     fewer).  ``overflow_fallback`` as in :func:`build_kp_pyramid`.  Inputs
-    may be numpy arrays or tensors; they move to ``device``."""
+    may be numpy arrays or tensors; they move to ``device``.  Spans as in
+    :func:`apr_torch.training.batching.make_pair_batch`: ``build.voxelize``
+    (the copies in and the voxel pyramid), ``build.maps`` (the radius
+    searches, pool and upsample tables) and ``build.corr``."""
     dev = resolve_device(device)
 
     def put(x, dtype):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
     b = len(t_gt)
-    pts = torch.cat([put(points0, torch.float32), put(points1, torch.float32)])
-    msk = torch.cat([put(mask0, torch.bool), put(mask1, torch.bool)])
-    t_gt = put(t_gt, torch.float32)
-    pyr = build_kp_pyramid(pts, msk, first_subsampling_dl, conv_radius,
-                           len(capacities), tuple(capacities),
-                           tuple(neighbor_limits), overflow_fallback)
-    lv0 = pyr.levels[0]
-    corr = gt_correspondences(
-        lv0.points[:b], lv0.points[b:], t_gt, radius=overlap_radius,
-        cap_per_point=corr_cap, mask0=lv0.mask[:b], mask1=lv0.mask[b:])
+    with span("build.voxelize"):
+        pts = torch.cat([put(points0, torch.float32),
+                         put(points1, torch.float32)])
+        msk = torch.cat([put(mask0, torch.bool), put(mask1, torch.bool)])
+        t_gt = put(t_gt, torch.float32)
+        grids = voxelize_pyramid(pts, first_subsampling_dl,
+                                 tuple(capacities), msk)
+    with span("build.maps"):
+        pyr = kp_pyramid_tables(grids, first_subsampling_dl * conv_radius,
+                                len(capacities), tuple(neighbor_limits),
+                                overflow_fallback)
+    with span("build.corr"):
+        lv0 = pyr.levels[0]
+        corr = gt_correspondences(
+            lv0.points[:b], lv0.points[b:], t_gt, radius=overlap_radius,
+            cap_per_point=corr_cap, mask0=lv0.mask[:b], mask1=lv0.mask[b:])
 
-    apc = torch.cat([put(apc0, torch.float32), put(apc1, torch.float32)])
-    apc_mask = torch.cat([put(apc0_mask, torch.bool),
-                          put(apc1_mask, torch.bool)])
-    if apc.shape[1] > 8:
-        apc, apc_mask = dedup_points(apc, first_subsampling_dl, apc_mask)
+        apc = torch.cat([put(apc0, torch.float32), put(apc1, torch.float32)])
+        apc_mask = torch.cat([put(apc0_mask, torch.bool),
+                              put(apc1_mask, torch.bool)])
+        if apc.shape[1] > 8:
+            apc, apc_mask = dedup_points(apc, first_subsampling_dl, apc_mask)
 
     def side(pyramid, s):
         return KPPyramid(levels=tuple(
@@ -139,10 +149,10 @@ def make_kp_pair_batch(
     device="cuda",
 ) -> KPPairBatch:
     """One pair -> its :class:`KPPairBatch` (:func:`make_kp_pairs` of a
-    group of one; an overflowed windowed search reruns exactly)."""
-    dev = resolve_device(device)
+    group of one, which moves the arrays to ``device``; an overflowed
+    windowed search reruns exactly)."""
     group = make_kp_pairs(
-        *(torch.as_tensor(x, device=dev)[None] for x in (
+        *(torch.as_tensor(x)[None] for x in (
             points0, mask0, points1, mask1, apc0, apc0_mask, apc1,
             apc1_mask, t_gt)),
         first_subsampling_dl=first_subsampling_dl, conv_radius=conv_radius,
@@ -276,7 +286,8 @@ class PredatorTrainer(TrainerState):
         loss's correspondences.  Train mode updates the generator's running
         stats in place."""
         c = self.config
-        out = self.model(batch.pyr0, batch.pyr1)
+        with span("encode"):
+            out = self.model(batch.pyr0, batch.pyr1)
         lv0, lv1 = batch.pyr0.levels[0], batch.pyr1.levels[0]
         stats = metric_loss(
             generator, lv0.points, lv1.points, lv0.mask, lv1.mask,
@@ -358,11 +369,14 @@ class PredatorTrainer(TrainerState):
                    generator: Optional[torch.Generator] = None,
                    w_saliency: float = 0.0) -> Dict[str, torch.Tensor]:
         """One optimization step on one pair; returns the metrics, with
-        ``skipped_nonfinite`` 1.0 when the step was skipped."""
-        saved = [b.clone() for b in self.buffers()]
-        self.optimizer.zero_grad(set_to_none=False)
-        loss, metrics = self.loss_fn(batch, generator, w_saliency, True)
-        loss.backward()
+        ``skipped_nonfinite`` 1.0 when the step was skipped.  Spans as in
+        :meth:`FCGFTrainer.train_step`."""
+        with span("train.forward"):
+            saved = [b.clone() for b in self.buffers()]
+            self.optimizer.zero_grad(set_to_none=False)
+            loss, metrics = self.loss_fn(batch, generator, w_saliency, True)
+        with span("train.backward"):
+            loss.backward()
         return self._gated_update(loss, saved, metrics, sharded=False)
 
     def train_step_batched(self, batch: KPPairBatch,

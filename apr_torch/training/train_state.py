@@ -34,6 +34,7 @@ import torch
 
 from apr_torch.parallel.collectives import all_reduce_, all_reduce_flat_
 from apr_torch.parallel.mesh import replicate
+from apr_torch.utils.profiling import span
 
 
 class GradientAccumulation:
@@ -143,28 +144,31 @@ class TrainerState:
         still reaches them.  ``step`` counts the call either way.  Under a
         mesh (and ``sharded``: each rank's gradients are its share) the
         gradients are summed over the mesh first and ``loss`` is the
-        global loss."""
-        params = self.parameters()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        mesh = self.mesh if sharded else None
-        if mesh is not None:
-            all_reduce_flat_([p.grad for p in params], mesh)
-        finite = torch.isfinite(loss) & torch.stack(
-            [torch.isfinite(p.grad).all() for p in params]).all()
-        if mesh is not None:
-            flag = finite.to(torch.int32).reshape(1)
-            finite = all_reduce_(flag, mesh, op="min", kind="finite")[0] > 0
-        if bool(finite):
-            self.accumulation.step(params, self.optimizer)
-        else:
-            with torch.no_grad():
-                for b, old in zip(self.buffers(), saved):
-                    b.copy_(old)
-        self.step += 1
-        metrics["skipped_nonfinite"] = 1.0 - finite.float()
-        return metrics
+        global loss.  One ``train.update`` span: the finite test with its
+        host sync, then the step or the restore."""
+        with span("train.update"):
+            params = self.parameters()
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh = self.mesh if sharded else None
+            if mesh is not None:
+                all_reduce_flat_([p.grad for p in params], mesh)
+            finite = torch.isfinite(loss) & torch.stack(
+                [torch.isfinite(p.grad).all() for p in params]).all()
+            if mesh is not None:
+                flag = finite.to(torch.int32).reshape(1)
+                finite = all_reduce_(flag, mesh, op="min",
+                                     kind="finite")[0] > 0
+            if bool(finite):
+                self.accumulation.step(params, self.optimizer)
+            else:
+                with torch.no_grad():
+                    for b, old in zip(self.buffers(), saved):
+                        b.copy_(old)
+            self.step += 1
+            metrics["skipped_nonfinite"] = 1.0 - finite.float()
+            return metrics
 
     # --- checkpoints ----------------------------------------------------
 

@@ -58,6 +58,7 @@ from apr_torch.registration.matching import feature_nn_correspondences
 from apr_torch.registration.metrics import hit_ratio, registration_errors
 from apr_torch.training.batching import PairBatch, make_pair_batch
 from apr_torch.training.train_state import TrainerState
+from apr_torch.utils.profiling import span
 
 
 def _zip_tree(fn, a, c):
@@ -187,19 +188,20 @@ class FCGFTrainer(TrainerState):
         moments and apply the momentum updates side 0 then side 1;
         ``fold=False`` runs the two forwards one after the other.
         """
-        if not fold:
-            return (self._encode(batch.feats0, batch.pyramid0, train),
-                    self._encode(batch.feats1, batch.pyramid1, train))
-        b = batch.feats0.shape[0]
+        with span("encode"):
+            if not fold:
+                return (self._encode(batch.feats0, batch.pyramid0, train),
+                        self._encode(batch.feats1, batch.pyramid1, train))
+            b = batch.feats0.shape[0]
 
-        def weave(a, c):
-            return torch.stack([a, c], 1).reshape((2 * b,) + a.shape[1:])
+            def weave(a, c):
+                return torch.stack([a, c], 1).reshape((2 * b,) + a.shape[1:])
 
-        f = self._encode(weave(batch.feats0, batch.feats1),
-                         _zip_tree(weave, batch.pyramid0, batch.pyramid1),
-                         train, stats_groups=2 if train else 1)
-        f = f.reshape((b, 2) + f.shape[1:])
-        return f[:, 0], f[:, 1]
+            f = self._encode(weave(batch.feats0, batch.feats1),
+                             _zip_tree(weave, batch.pyramid0, batch.pyramid1),
+                             train, stats_groups=2 if train else 1)
+            f = f.reshape((b, 2) + f.shape[1:])
+            return f[:, 0], f[:, 1]
 
     def _contrastive(self, generator, f0_flat, f1_flat, src, tgt, pmask, m0,
                      m1):
@@ -317,11 +319,15 @@ class FCGFTrainer(TrainerState):
         finite: then parameters, optimizer state, accumulation and running
         stats all stay as they were (the reference's validate_gradient
         gate).  With ``iter_size`` k the optimizer steps on every k-th
-        accepted call (:mod:`apr_torch.training.train_state`)."""
-        saved = [b.clone() for b in self.buffers()]
-        self.optimizer.zero_grad(set_to_none=False)
-        loss, metrics = self.loss_fn(batch, generator, train=True)
-        loss.backward()
+        accepted call (:mod:`apr_torch.training.train_state`).  Spans:
+        ``train.forward`` (the running stats' snapshot, ``zero_grad`` and
+        the loss), ``train.backward``, then ``train.update``."""
+        with span("train.forward"):
+            saved = [b.clone() for b in self.buffers()]
+            self.optimizer.zero_grad(set_to_none=False)
+            loss, metrics = self.loss_fn(batch, generator, train=True)
+        with span("train.backward"):
+            loss.backward()
         return self._gated_update(metrics["loss"], saved, metrics)
 
     def train_step_fused(self, batch: PairBatch, raw_next: Tuple,

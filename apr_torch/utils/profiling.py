@@ -11,6 +11,9 @@
 - :func:`time_stage`: the profilers' protocol: K chained iterations, each
   input re-keyed from the previous output, read three ways (device ms,
   wall ms, busy ms with launches).
+- :func:`span`: the package's own named ranges (``apr::<name>``) at its
+  step, build and tester boundaries, recorded only while a profiler
+  collects.
 
 Every function takes the device from its ``device`` argument (the current
 CUDA device by default).  :func:`cuda_ms` and :func:`profiled` raise on
@@ -20,6 +23,7 @@ reports the device numbers as not measured.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 from typing import Callable, NamedTuple, Optional
@@ -27,6 +31,22 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 SM_HZ = 1.98e9     # H100 SXM boost clock: the cycles of a sleep kernel
+
+SPAN_PREFIX = "apr::"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("train.forward"):`` -- a ``record_function`` range named
+    ``apr::<name>`` while a profiler collects (``torch.profiler`` or
+    ``StepProfiler``), else one shared null context.  It never waits for
+    the card: the range is a host event on the clock of the device trace,
+    so the kernels it launches are found through their launch calls.  The
+    flag read costs ~0.1-0.3 us on the host; an unguarded
+    ``record_function`` ~15 us even with no profiler."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 def _card(device, what: str) -> torch.device:

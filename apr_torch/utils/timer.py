@@ -1,5 +1,6 @@
 """Wall-clock meters, API-compatible with the reference
-(FCGF_APR/lib/timer.py:5-76; Predator_APR/lib/timer.py identical)."""
+(FCGF_APR/lib/timer.py:5-76; Predator_APR/lib/timer.py identical), less
+its ``MinTimer``, which nothing reads."""
 
 from __future__ import annotations
 
@@ -60,16 +61,3 @@ class Timer:
     def incCount(self):
         self.calls += 1
         self.avg = self.total_time / max(self.calls, 1)
-
-
-class MinTimer(Timer):
-    """Tracks the minimum interval seen."""
-
-    def reset(self):
-        super().reset()
-        self.min = float("inf")
-
-    def toc(self, average: bool = True, accumulate: bool = False):
-        out = super().toc(average=average, accumulate=accumulate)
-        self.min = min(self.min, self.diff)
-        return out

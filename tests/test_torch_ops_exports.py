@@ -2,7 +2,9 @@
 
 - Each of the eight reference subpackages' ``__all__`` (ops,
   registration, training, losses, geometry, models, data, utils) is the
-  port's matching ``__all__``, name for name, and every name imports;
+  port's matching ``__all__``, name for name, and every name imports,
+  less the names the port leaves out on purpose (``LEFT_OUT``), which it
+  does not export;
   ``training.TrainState`` is the port's trainer state.
 - ``voxel_down_sample`` and ``grid_subsample`` against the reference's
   under ``jax.jit`` (its voxel coordinates use the float32 reciprocal of
@@ -26,15 +28,22 @@ ref_vox = importlib.import_module("apr_tpu.ops.voxelize")
 
 SUBPACKAGES = ("ops", "registration", "training", "losses", "geometry",
                "models", "data", "utils")
+# reference exports the port leaves out on purpose, by subpackage:
+# MinTimer, read by no module, test, tool or smoke phase of the port
+LEFT_OUT = {"utils": ("MinTimer",)}
 
 
 @pytest.mark.parametrize("name", SUBPACKAGES)
 def test_every_reference_export_imports_from_the_port(name):
     ref = importlib.import_module(f"apr_tpu.{name}")
     port = importlib.import_module(f"apr_torch.{name}")
-    assert list(port.__all__) == list(ref.__all__)
+    left_out = LEFT_OUT.get(name, ())
+    assert set(left_out) <= set(ref.__all__)
+    assert list(port.__all__) == [a for a in ref.__all__
+                                  if a not in left_out]
     for attr in ref.__all__:
-        assert hasattr(port, attr), f"apr_torch.{name}.{attr}"
+        assert hasattr(port, attr) != (attr in left_out), \
+            f"apr_torch.{name}.{attr}"
 
 
 def test_train_state_is_the_ports_trainer_state():
