@@ -13,13 +13,16 @@ launches of K2.
 
     python -m apr_torch.tools.profile_predator_sustained [--k 8]
         [--points 30000] [--apc 131072] [--symmetric]
-        [--radius_select topk|tournament|itermin] [--device cuda]
+        [--radius_select k3|topk|tournament|itermin] [--device cuda]
 
-``--radius_select`` swaps the window's k-smallest selector for the time of
-the run (``apr_torch/tools/probe_radius_select.py::selector``).
+``--radius_select`` other than ``k3`` (the program's own selection:
+kernel K3 on a card) keeps the build's searches on the plain chain with
+that k-smallest selector for the time of the run
+(``apr_torch/tools/probe_radius_select.py::selector``).
 """
 
 import argparse
+import contextlib
 import sys
 
 import numpy as np
@@ -89,10 +92,11 @@ def main(argv=None):
                     help="KPFCNNDecoder symmetric generator at flagship "
                          "shape (the config the reference declares "
                          "unsupported for memory reasons)")
-    ap.add_argument("--radius_select", default="topk",
-                    choices=sorted(SELECTORS),
-                    help="the window's k-smallest selector for the radius "
-                         "tables")
+    ap.add_argument("--radius_select", default="k3",
+                    choices=["k3", *sorted(SELECTORS)],
+                    help="the radius tables' selection: k3, the program's "
+                         "own, or the plain chain with this k-smallest "
+                         "selector")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -109,7 +113,8 @@ def main(argv=None):
     raw = raw_arrays(cfg, args.points, dev)
     generator = torch.Generator(dev).manual_seed(3)
     rows = []
-    with selector(args.radius_select):
+    with (contextlib.nullcontext() if args.radius_select == "k3"
+          else selector(args.radius_select)):
         batch = trainer.build_batch(raw)
         for label, fn, x0, rekey in stages(trainer, raw, batch, generator):
             row, _ = time_stage(label, fn, x0, rekey, args.k, dev,

@@ -210,14 +210,18 @@ class StageRow(NamedTuple):
     launches: Optional[int]      # kernels of that iteration
     k1: int                      # kernel K1 launches of that iteration
     k2: int                      # kernel K2 launches of that iteration
+    k3: int                      # kernel K3 launches of that iteration
+    k3_plain: int                # card searches K3's shape test left plain
     top: str
 
 
 def _kernel_counts():
     from apr_torch.ops.distance import nn_min
+    from apr_torch.ops.neighbors import radius_select
     from apr_torch.ops.searchsorted import searchsorted_left
 
-    return searchsorted_left.launches, nn_min.launches
+    return (searchsorted_left.launches, nn_min.launches,
+            radius_select.launches, radius_select.plain_cuda)
 
 
 def _reports_sync(fn):
@@ -246,7 +250,8 @@ def time_stage(label: str, fn: Callable, x0, rekey: Callable, k: int,
     time of the ``k`` iterations by :func:`cuda_ms`; the wall time by the
     host clock, synchronised at both ends; and the busy ms, kernel
     launches and top kernels of one :func:`profiled` iteration (with the
-    K1 / K2 launches of that iteration).  A stage that ``syncs`` with the
+    K1 / K2 / K3 launches of that iteration, and the card's searches that
+    stayed on K3's plain chain).  A stage that ``syncs`` with the
     host inside (declared, or reported by torch's sync debug mode during
     the warm-up) is never timed under :func:`cuda_ms`'s sleep hold: it
     gets wall and busy only.  A chain of more launches than CUDA's queue
@@ -284,8 +289,8 @@ def time_stage(label: str, fn: Callable, x0, rekey: Callable, k: int,
         with torch.inference_mode(inference):
             fn(rekey(x0, out, k))
     c1 = _kernel_counts()
-    row = StageRow(label, dev_ms, wall, busy, n_kern, c1[0] - c0[0],
-                   c1[1] - c0[1], top)
+    row = StageRow(label, dev_ms, wall, busy, n_kern,
+                   *(a - b for a, b in zip(c1, c0)), top)
     print(_format_row(row, unit), flush=True)
     return row, out
 
@@ -300,7 +305,8 @@ def _format_row(row: StageRow, unit: str) -> str:
     launches = "not measured" if row.launches is None else row.launches
     return (f"{row.label:<44} device {dev}  wall {ms(row.wall_ms)}  busy "
             f"{ms(row.busy_ms)}  launches {launches}  K1 {row.k1}  K2 "
-            f"{row.k2}  per {unit}  top: {row.top}")
+            f"{row.k2}  K3 {row.k3} (plain on the card {row.k3_plain})  per "
+            f"{unit}  top: {row.top}")
 
 
 def difference(label: str, a: StageRow, b: StageRow, unit: str) -> str:

@@ -42,9 +42,15 @@ non-zero; with no card, or outside a checkout, it exits non-zero at once):
    planted backward fault, which the check must catch;
 13. the Predator KP pyramid of one full-capacity pair built on the card and
    on the CPU (rows that differ end to end, the exact fallbacks), then
-   every search of the build (the windowed search with each selector, the
-   brute-force radius search, the 1-NN) from the same barycenters on both,
-   held exact, with each search's device time;
+   the windowed and brute-force radius searches, the 1-NN upsample and the
+   GT correspondences with cap 2 from the same barycenters: kernel K3
+   against the plain torch chain on the card and on the CPU, held exact,
+   with both chains' device times; then one batch build at
+   predator-apr.train's shapes: K3 launches, card searches left on the
+   plain chain (none), windowed searches and fallbacks, the build by K3
+   and by the plain chain equal in every field with both walls, and each
+   search it made, recorded at its call site, K3 against the plain chain,
+   exact and timed, with K3's operation bound from the pairs it scores;
 14. the KPFCNN forward at full width from the same batch and weights,
    float32 card against CPU (gated) and bf16 against float32;
 15. the Predator eval slice: PredatorTester.test on 8 synthetic pairs at
@@ -178,6 +184,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 # subtractions, products and sums cannot fuse and count one each
 FP32_OPS_PER_S = 3.35e13
 K2_OPS_PER_PAIR = 8              # 3 subtractions, 3 products, 2 sums
+K3_OPS_PER_PAIR = 8              # the same, K3's float32 pre-test
 ENC_F32_TOL = 1e-4               # abs, on unit-norm float32 features
 # phase 12: max |card - CPU| over max |CPU| within each gradient leaf, that
 # maximum raised by GRAD_FLOOR of the largest gradient of all leaves
@@ -236,6 +243,8 @@ K1 = dict(name="searchsorted_left", source="apr_torch/csrc/searchsorted.cu",
           replaces="apr_tpu/ops/pallas/searchsorted.py:116")
 K2 = dict(name="nn_min", source="apr_torch/csrc/nn_min.cu",
           replaces="apr_tpu/ops/pallas/distance.py:86")
+K3 = dict(name="radius_select", source="apr_torch/csrc/radius_select.cu",
+          replaces=None)   # XLA's top_k in apr_tpu/ops/neighbors.py
 
 
 def phase(name):
@@ -816,17 +825,153 @@ def check_step(readings, grad_tol, fault):
           f"and the loss terms agree")
 
 
+def recorded_searches(fn):
+    """``fn()`` with every search a Predator batch build makes recorded at
+    its call site: the KP tables' ``windowed_radius_neighbors`` /
+    ``radius_neighbors`` / ``knn`` (exact fallbacks included) and the GT
+    correspondences' ``radius_neighbors``.  Returns (fn's result, [(name,
+    call)]); ``call(device)`` repeats one search on its own inputs (the
+    device is theirs)."""
+    import apr_torch.models.kpconv as kpconv
+    from apr_torch.ops import neighbors
+
+    sites = [(kpconv, n, "KP") for n in ("windowed_radius_neighbors",
+                                         "radius_neighbors", "knn")]
+    sites.append((neighbors, "radius_neighbors", "GT"))
+    saved = [getattr(m, n) for m, n, _ in sites]
+    calls = []
+
+    def recorder(search, what):
+        def rec(*a, **kw):
+            k = a[3] if len(a) > 3 else a[2]
+            calls.append((f"{what} {search.__name__} {list(a[0].shape)} -> "
+                          f"{list(a[1].shape[:2])} k {k}",
+                          lambda d: search(*a, **kw)))
+            return search(*a, **kw)
+        return rec
+
+    for (m, n, what), f in zip(sites, saved):
+        setattr(m, n, recorder(f, what))
+    try:
+        out = fn()
+    finally:
+        for (m, n, _), f in zip(sites, saved):
+            setattr(m, n, f)
+    return out, calls
+
+
+def k3_pairs(queries, supports, q_mask, s_mask, lo, hi, idx, d2, bound,
+             yx, tile, window):
+    """The candidate pairs that one K3 launch scores, from
+    ``neighbors._launch``'s arguments: valid queries x valid supports in
+    brute mode; in windowed mode, per tile its valid queries x the window's
+    positions below hi."""
+    b, nq, _ = queries.shape
+
+    def valid(m, n):
+        return (torch.full((b,), float(n), dtype=torch.float64)
+                if m is None else m.sum(1, dtype=torch.float64).cpu())
+
+    if lo is None:
+        return float((valid(q_mask, nq)
+                      * valid(s_mask, supports.shape[1])).sum())
+    qv = (torch.ones((b, nq), dtype=torch.bool, device=queries.device)
+          if q_mask is None else q_mask)
+    qv = torch.nn.functional.pad(qv, (0, lo.shape[1] * tile - nq))
+    per_tile = qv.reshape(b, -1, tile).sum(-1, dtype=torch.float64)
+    return float((per_tile * (hi - lo).clamp(0, window).double()).sum())
+
+
+def same_outputs(a, b):
+    """Whether two search results (a tensor or a tuple of them) are equal
+    entry for entry (+inf equals +inf)."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and bool((a.cpu() == b.cpu()).all())
+    return all(same_outputs(x, y) for x, y in zip(a, b))
+
+
+def differing_fields(a, b, at="batch"):
+    """The fields of two batches (NamedTuples, tuples, tensors) that differ
+    in any entry."""
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [at]
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return [x for f in a._fields for x in differing_fields(
+            getattr(a, f), getattr(b, f), f"{at}.{f}")]
+    if isinstance(a, (tuple, list)):
+        return [x for i, (u, v) in enumerate(zip(a, b))
+                for x in differing_fields(u, v, f"{at}[{i}]")]
+    return [] if a == b else [at]
+
+
+def k3_against_plain(searches, dev, with_cpu):
+    """Each search by kernel K3 on the card against the plain torch chain
+    on the card (``probe_radius_select.selector("topk")`` keeps every
+    search on it) and, with ``with_cpu``, on the CPU, entry for entry, with
+    both chains' device times and K3's operation bound: 8 float32
+    instructions for each candidate pair that its launch scores, at
+    FP32_OPS_PER_S.  Returns the sums (K3 ms, plain ms, bound ms)."""
+    from apr_torch.ops import neighbors
+    from apr_torch.tools.probe_radius_select import selector
+
+    launch = neighbors._launch
+    sums = np.zeros(3)
+    for name, fn in searches:
+        pairs = []
+
+        def counted_launch(*a):
+            pairs.append(k3_pairs(*a))
+            return launch(*a)
+
+        neighbors._launch = counted_launch
+        try:
+            got = fn(dev)
+            torch.cuda.synchronize()
+        finally:
+            neighbors._launch = launch
+        if len(pairs) != 1:
+            raise AssertionError(f"{name}: {len(pairs)} K3 launches, want 1")
+        with selector("topk"):
+            plain = fn(dev)
+            plain_ms = cuda_ms(lambda: fn(dev), 3)
+        ok = same_outputs(got, plain)
+        if with_cpu:
+            ok = ok and same_outputs(got, fn("cpu"))
+        if not ok:
+            raise AssertionError(f"{name}: K3's table differs from the plain "
+                                 f"chain's from the same barycenters")
+        k3_ms = cuda_ms(lambda: fn(dev), 3)
+        bound_ms = pairs[0] * K3_OPS_PER_PAIR / FP32_OPS_PER_S * 1e3
+        sums += (k3_ms, plain_ms, bound_ms)
+        print(f"  {name:48s} exact (plain chain on the card"
+              f"{', CPU' if with_cpu else ''}); K3 {k3_ms:8.3f} ms, plain "
+              f"chain {plain_ms:9.3f} ms; {pairs[0]:.4g} candidate pairs, "
+              f"bound {bound_ms:.4f} ms")
+    return sums
+
+
 def kp_neighbour_phase(dev, pair):
     """Phase 13: one pair's KP pyramid built twice on the card and once on
     the CPU from the raw points, every field held bit for bit (two card
-    builds, card vs CPU), then every search of the build from the SAME
-    barycenters (the card's) on both sides, held exact, with each search's
-    device time."""
+    builds, card vs CPU), then the searches of the build that the phase
+    lists and the GT correspondences with cap 2 from the SAME barycenters
+    (the card's): kernel K3 against the plain torch chain on the card and
+    on the CPU, held exact, with both chains' device times.  Then one
+    batch build of predator-apr.train's shapes (PT_FIELDS, PT_PAIR): its K3
+    launches, its card searches left on the plain chain (none), its
+    windowed searches and exact fallbacks; that build by K3 and by the
+    plain chain, every field held equal, with both walls; and each search
+    that build made, recorded at its call site, K3 against the plain chain
+    on the card, exact and timed.  Returns the latter's sums (K3 ms, plain
+    ms, bound ms)."""
     from apr_torch.config import APRConfig
-    from apr_torch.data.synthetic import pad_points
+    from apr_torch.data.synthetic import pad_points, synthetic_pair
     from apr_torch.models.kpconv import KPLevel, build_kp_pyramid
     from apr_torch.ops.neighbors import knn, radius_neighbors, \
         windowed_radius_neighbors
+    from apr_torch.registration.matching import gt_correspondences
+    from apr_torch.tools.probe_radius_select import selector
+    from apr_torch.training.predator import make_kp_pair_batch
 
     c = APRConfig(**KP_FIELDS)
     pts, msk = zip(*(pad_points(pair[k], c.point_capacity)
@@ -866,10 +1011,12 @@ def kp_neighbour_phase(dev, pair):
                                  f"the CPU's: {rows}")
     print("  two card builds bit-identical; card equals CPU in every field")
 
-    # every search of the build from the card's barycenters on both sides
+    # the searches the phase lists, and the GT correspondences with cap 2,
+    # from the card's barycenters on both sides
     lv = [(lvl.points, lvl.mask) for lvl in pyr_gpu.levels]
     r0 = c.first_subsampling_dl * c.conv_radius
     cap = c.neighborhood_limits[0]
+    t_gt = torch.as_tensor(pair["t_gt"], dtype=torch.float32)[None]
 
     def windowed(q, s):
         return lambda d: windowed_radius_neighbors(
@@ -890,19 +1037,58 @@ def kp_neighbour_phase(dev, pair):
         ("knn 1-NN L0 -> L1", lambda d: knn(
             lv[0][0].to(d), lv[1][0].to(d), 1, lv[0][1].to(d),
             lv[1][1].to(d))[0]),
+        ("GT correspondences cap 2", lambda d: gt_correspondences(
+            lv[0][0][:1].to(d), lv[0][0][1:].to(d), t_gt.to(d),
+            c.overlap_radius, cap_per_point=2, mask0=lv[0][1][:1].to(d),
+            mask1=lv[0][1][1:].to(d)).tgt_idx),
     ]
-    for name, fn in searches:
-        got, want = fn(dev).cpu(), fn("cpu")
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: the card's table differs from "
-                                 f"the CPU's from the same barycenters in "
-                                 f"{int((got != want).sum())} entries")
-        print(f"  {name:28s} {tuple(got.shape)} exact card vs CPU; device "
-              f"time {cuda_ms(lambda: fn(dev), 3):8.3f} ms")
+    k3_against_plain(searches, dev, with_cpu=True)
     build_ms = cuda_ms(lambda: build_kp_pyramid(pts.to(dev), msk.to(dev),
                                                 **kw), 3)
     print(f"  whole pyramid build (two clouds, one host sync for the "
           f"overflow flags): {build_ms:.3f} ms a build")
+
+    pt = APRConfig(**PT_FIELDS)
+    raw = [x[0] for x in raw_batch([synthetic_pair(seed=300, **PT_PAIR)],
+                                   pt)]
+    build_kw = dict(first_subsampling_dl=pt.first_subsampling_dl,
+                    conv_radius=pt.conv_radius,
+                    capacities=tuple(pt.kp_capacities),
+                    neighbor_limits=tuple(pt.neighborhood_limits),
+                    overlap_radius=pt.overlap_radius, device=dev)
+    k3_reset()
+    win0, fb0 = build_kp_pyramid.windowed, build_kp_pyramid.fallbacks
+    batch, calls = recorded_searches(
+        lambda: make_kp_pair_batch(*raw, **build_kw))
+    torch.cuda.synchronize()
+    (n, plain_cuda), win, fb = (k3_counts(),
+                                build_kp_pyramid.windowed - win0,
+                                build_kp_pyramid.fallbacks - fb0)
+    print(f"  one build at predator-apr.train's shapes (caps "
+          f"{pt.kp_capacities}, {PT_PAIR['n_points']} points): "
+          f"radius_select.launches {n}, radius_select.plain_cuda "
+          f"{plain_cuda}, build_kp_pyramid.windowed {win}, "
+          f"build_kp_pyramid.fallbacks {fb}; {len(calls)} searches")
+    if n != len(calls) or plain_cuda != 0:
+        raise AssertionError("the Predator train build must select in K3 "
+                             "only, one launch a search")
+    with selector("topk"):
+        plain = make_kp_pair_batch(*raw, **build_kw)
+        walls = [synced_ms(lambda: make_kp_pair_batch(*raw, **build_kw))]
+    walls.insert(0, synced_ms(lambda: make_kp_pair_batch(*raw, **build_kw)))
+    bad = differing_fields(batch, plain)
+    print(f"  that build by K3 and by the plain chain: "
+          f"{'equal in every field' if not bad else bad}; wall (median of "
+          f"3, synced) K3 {walls[0]:.1f} ms, plain chain {walls[1]:.1f} ms")
+    if bad:
+        raise AssertionError(f"K3's build differs from the plain chain's in "
+                             f"{bad}")
+    print("  each search of that build, as it was called:")
+    sums = k3_against_plain(calls, dev, with_cpu=False)
+    print(f"  the build's searches in all: K3 {sums[0]:.3f} ms, plain chain "
+          f"{sums[1]:.3f} ms, bound {sums[2]:.4f} ms")
+    return dict(ms=float(sums[0]), plain_ms=float(sums[1]),
+                bound_ms=float(sums[2]))
 
 
 def kp_forward_phase(dev, pair):
@@ -971,11 +1157,13 @@ def predator_slice_phase(dev, pairs):
     tester = PredatorTester(c, trainer, device=dev)
     searchsorted_left.launches = 0
     nn_min.launches = 0
+    k3_reset()
     fb0 = build_kp_pyramid.fallbacks
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = tester.test(pairs, seed=0)
     main_s = time.perf_counter() - t0
+    k3_take("predator_eval")
     peak = torch.cuda.max_memory_allocated() / 2**30
     summ = stats.summary()
     print(f"  pairs/s {summ['pairs_per_sec']:.3f} (pairs 2-{len(pairs)}, "
@@ -1085,6 +1273,7 @@ def predator_train_phase(dev):
     fb0 = build_kp_pyramid.fallbacks
     searchsorted_left.launches = 0
     nn_min.launches = 0
+    k3_reset()
     step_s, step_metrics = [], []
     for k in range(TRAIN_STEPS):
         w_sal = 0.0 if k < (TRAIN_STEPS + 1) // 2 else 1.0
@@ -1096,6 +1285,7 @@ def predator_train_phase(dev):
         step_s.append(time.perf_counter() - t0)
         step_metrics.append({n: float(v) for n, v in metrics.items()})
     k1_pt, k2_pt = searchsorted_left.launches, nn_min.launches
+    k3_take("predator_train")
     peak = torch.cuda.max_memory_allocated() / 2**30
     for k, (sec, m) in enumerate(zip(step_s, step_metrics)):
         print(f"  step {k}: {sec * 1e3:9.1f} ms  " +
@@ -1680,19 +1870,23 @@ def predator_loop_phase(dev):
         torch.cuda.reset_peak_memory_stats()
         searchsorted_left.launches = 0
         nn_min.launches = 0
+        k3_reset()
         t0 = time.perf_counter()
         summary = yaml_main(train_yaml, device=DEVICE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1, k2 = searchsorted_left.launches, nn_min.launches
+        k3_take("predator_loop")
         peak = torch.cuda.max_memory_allocated() / 2**30
         searchsorted_left.launches = 0
         nn_min.launches = 0
+        k3_reset()
         t0 = time.perf_counter()
         test = yaml_main(test_yaml, device=DEVICE)
         torch.cuda.synchronize()
         test_wall = time.perf_counter() - t0
         test_k = (searchsorted_left.launches, nn_min.launches)
+        k3_take("predator_loop")
     finally:
         restore()
     steps = PT_LOOP_PAIRS["train"]
@@ -1856,6 +2050,7 @@ def real_data_phase(dev):
         torch.cuda.reset_peak_memory_stats()
         searchsorted_left.launches = 0
         nn_min.launches = 0
+        k3_reset()
         t0 = time.perf_counter()
         try:
             out = fn()
@@ -1864,6 +2059,7 @@ def real_data_phase(dev):
             undo()
         return dict(summary=out, wall=time.perf_counter() - t0,
                     k1=searchsorted_left.launches, k2=nn_min.launches,
+                    k3=k3_counts(),
                     builds=counts["builds"] if modules else None,
                     peak=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -1987,8 +2183,10 @@ def real_data_phase(dev):
         r["summary"] = dict(s, last_train=epoch_means(train_rec))
         check_loop_run(r, n_train, n_val, 0, "the Predator loop on KITTI "
                        "pairs")
+        k3_take("real_predator", r["k3"])
         k2 = r["k2"]
         r = counted(lambda: yaml_main(test_yaml, device=DEVICE))
+        k3_take("real_predator", r["k3"])
         res = np.load(os.path.join(test_out, "results.npz"))
         print(f"    test mode ({os.path.relpath(test_yaml, HERE)}, LoKITTI, "
               f"the run's weights): {r['wall']:.1f} s, "
@@ -2547,9 +2745,44 @@ def bitwise_same(a, b, kinds=("metrics", "stats", "params", "grads")):
     return out
 
 
+K3_LAUNCHES = {}       # Predator path -> K3 launches in its main run
+
+
+def k3_reset():
+    """Kernel K3's counters set to 0 before a run."""
+    from apr_torch.ops.neighbors import radius_select
+
+    radius_select.launches = radius_select.plain_cuda = 0
+
+
+def k3_counts():
+    """(K3 launches, card searches left on the plain chain) since
+    :func:`k3_reset`."""
+    from apr_torch.ops.neighbors import radius_select
+
+    return radius_select.launches, radius_select.plain_cuda
+
+
+def k3_take(path, counts=None):
+    """A Predator path's K3 launches and card searches left on the plain
+    chain in its main run (``k3_counts()``, or ``counts`` summed over
+    ranks), added to K3_LAUNCHES[path]: every KP search of a Predator build
+    on the card selects in K3, so there must be launches and no plain-chain
+    search."""
+    n, plain = k3_counts() if counts is None else counts
+    print(f"  {path}: K3 launches {n}, card searches on the plain chain "
+          f"{plain}")
+    if n == 0 or plain != 0:
+        raise AssertionError(f"{path}: K3 launches {n}, card searches on "
+                             f"the plain chain {plain}; the Predator build "
+                             f"selects in K3 alone")
+    K3_LAUNCHES[path] = K3_LAUNCHES.get(path, 0) + n
+    return n
+
+
 class Counted:
-    """K1 / K2 launches of the enclosed block (counts set to 0 on entry,
-    read on exit)."""
+    """K1 / K2 / K3 launches and K3's plain-chain card searches of the
+    enclosed block (counts set to 0 on entry, read on exit)."""
 
     def __enter__(self):
         from apr_torch.ops.distance import nn_min
@@ -2558,11 +2791,13 @@ class Counted:
         self.k = (searchsorted_left, nn_min)
         for f in self.k:
             f.launches = 0
+        k3_reset()
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.k1, self.k2 = (f.launches for f in self.k)
+        self.k3, self.k3_plain = k3_counts()
 
 
 def synced_ms(fn, reps=3):
@@ -2641,6 +2876,7 @@ def phase22_rank(mesh, job):
 
     tr, batch, m, n = predator_step()
     out["launches"]["dp_predator"] = (n.k1, n.k2)
+    out["k3"] = {"dp_predator": (n.k3, n.k3_plain)}
     out["predator"] = readings_of(tr, m)
     out["predator_step_ms"] = synced_ms(lambda: tr.train_step_batched(
         batch, gen, 1.0, pair_weights=job["pt_weights"]))
@@ -2656,6 +2892,8 @@ def phase22_rank(mesh, job):
             t0 = time.perf_counter()
             stats = tester.test_sharded(pairs, mesh=mesh, seed=0)
         k1, k2 = k1 + n.k1, k2 + n.k2
+        if kind == "predator_eval":
+            out["k3"]["sharded_predator_eval"] = (n.k3, n.k3_plain)
         out[name] = dict(rte=stats.rte, rre=stats.rre,
                          fitness=stats.fitness, success=stats.success,
                          pairs_per_sec=stats.summary()["pairs_per_sec"],
@@ -2881,6 +3119,8 @@ def multi_rank_phase(dev, pairs, kp_pairs, raws, pairs_per_s):
     launches = {path: tuple(sum(r["launches"][path][i] for r in ranks)
                             for i in (0, 1))
                 for path in ranks[0]["launches"]}
+    for path in ranks[0]["k3"]:
+        k3_take(path, [sum(r["k3"][path][i] for r in ranks) for i in (0, 1)])
 
     print(f"  (b) FCGF data-parallel step, B = {cfg.batch_size} as "
           f"{cfg.batch_size // DP_RANKS} + {cfg.batch_size // DP_RANKS}, "
@@ -3056,6 +3296,7 @@ class Shared:
         self.k1_time = None            # phase 8's record (one eval build)
         self.k2_time = None            # phase 11's (one FCGF step)
         self.pt_step = None            # phase 16's (one Predator step)
+        self.k3_time = None            # phase 13's (one Predator build)
         self.splits = {}               # phases 10, 16: their stage splits
         self.icp_shape = None          # phase 21's (one ICP search)
         self.pairs_per_s = [float("nan"), float("nan")]
@@ -3507,8 +3748,9 @@ def phase_12(ctx):
 
 
 def phase_13(ctx):
-    t = phase("13 KP neighbours at full capacity, card vs CPU")
-    kp_neighbour_phase(ctx.dev, ctx.kp_pairs[0])
+    t = phase("13 KP neighbours at full capacity, card vs CPU; kernel K3 "
+              "against the plain chain")
+    ctx.k3_time = kp_neighbour_phase(ctx.dev, ctx.kp_pairs[0])
     print(f"  phase {time.perf_counter() - t:.1f} s")
 
 
@@ -3777,6 +4019,7 @@ def phase_24(ctx):
                            on + ["--steps", "4", "--eval_pairs", str(pairs)])
     ctx.k1_launches["validate_predator"] = k1
     ctx.k2_launches["validate_predator"] = k2
+    k3_take("validate_predator")
     print(f"  validate_predator_convergence --steps 4: "
           f"{time.perf_counter() - t0:.1f} s, recall {res['recall']:.3f}, "
           f"K1 {k1}, K2 {k2} (the tool's window Chamfer)")
@@ -3937,6 +4180,8 @@ def phase_26(ctx):
                 t0 = time.perf_counter()
                 rows, k1, k2 = run_tool(module, argv + on, log)
                 k1_all, k2_all = k1_all + k1, k2_all + k2
+                if module.startswith("profile_predator"):
+                    k3_take("profilers")
                 with open(log) as f:
                     text = f.read()
                 missing = [r.label for r in rows if r.label not in text]
@@ -4019,8 +4264,10 @@ def selected_phases(spec):
 
 
 def kernel_record(ctx):
-    """The kernels' JSON record: launches by path from this run, the
-    timings of phases 8 (K1), 11 (K2), 16 and 21 where they ran."""
+    """The kernels' JSON record: launches by path from this run (K3's: the
+    Predator paths' main runs in phases 15, 16, 19, 20, 22, 24 and 26),
+    the timings of phases 8 (K1), 11 (K2), 16 and 21, and 13 (K3: the
+    searches of one predator-apr.train build) where they ran."""
     def timing(t, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
         return {k: (t[k] if t else None) for k in keys}
 
@@ -4034,6 +4281,10 @@ def kernel_record(ctx):
              predator_train=timing(ctx.pt_step),
              icp=timing(ctx.icp_shape, ("ms", "plain_ms", "bound_ms",
                                         "ckdtree_query_ms"))),
+        dict(K3, route="cuda", launches=sum(K3_LAUNCHES.values()),
+             launches_by_path=dict(K3_LAUNCHES),
+             **timing(ctx.k3_time, ("ms", "plain_ms", "bound_ms")),
+             bound_by="operations"),
     ]}
 
 
@@ -4066,7 +4317,8 @@ def main():
     print("(K1's times: the 7 searches of one eval batch build, one grouped "
           "launch; K2's: the 4 nn_min calls of one FCGF train step, "
           "partitions included, under predator_train those of one "
-          "Predator train step, under icp one ICP search of phase 21; the "
+          "Predator train step, under icp one ICP search of phase 21; K3's: "
+          "the searches of one predator-apr.train build; the "
           "launches of dp_fcgf, dp_predator, sharded_eval and pipeline are "
           "summed over phase 22's two ranks; null: the phase that times it "
           "was not selected)")
