@@ -1,8 +1,9 @@
 """A cell of ``BENCHMARK.json`` and everything it names, found by name:
-the configuration file, the traffic mix ``traffic/<mix>.json``, the loop
-that the mix names ``loops/<loop>.py``, the limits of its comparison
-``limits/<cell>.json`` and the readers of its per-layer metrics
-``metrics/<metric>.py``."""
+the configuration file (and the frozen reference package that it may name,
+``harness/sides.py::reference_of``), the traffic mix
+``traffic/<mix>.json``, the loop that the mix names ``loops/<loop>.py``,
+the limits of its comparison ``limits/<cell>.json`` and the readers of its
+per-layer metrics ``metrics/<metric>.py``."""
 
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ class Cell:
     limits: Dict          # comparison name -> limit
     end_to_end: List[Dict]
     per_layer: List[Dict]
+    config_file: str = ""  # as BENCHMARK.json gives it
 
 
 def _applies(metric: Dict, cell: str) -> bool:
@@ -51,7 +53,8 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     limits = _json(os.path.join(bench_dir, "limits", name + ".json"))
     return Cell(name, w["chips"], config, mix, limits,
                 [m for m in bench["end_to_end"] if _applies(m, name)],
-                [m for m in bench["per_layer"] if _applies(m, name)])
+                [m for m in bench["per_layer"] if _applies(m, name)],
+                cfg["file"])
 
 
 def _module(kind: str, name: str, bench_dir: str) -> ModuleType:

@@ -4,7 +4,9 @@ from the run's seed, and freeing the program before the reference runs."""
 from __future__ import annotations
 
 import gc
+import statistics
 import sys
+from typing import List
 
 import torch
 
@@ -43,3 +45,21 @@ def print_setup(clock0: float, marks) -> None:
         parts.append(f"{name} {t - last:.3f} s")
         last = t
     print("setup: " + ", ".join(parts), file=sys.stderr)
+
+
+def print_pace(name: str, t_start: float, ends: List[float],
+               slice_s: float = 10.0) -> None:
+    """The window's pace on standard error: each unit's host seconds
+    (p10, median, p90, max) and the units that ended in each ``slice_s``
+    seconds of it."""
+    if not ends:
+        return
+    secs = [b - a for a, b in zip([t_start] + ends[:-1], ends)]
+    q = statistics.quantiles(secs, n=10) if len(secs) > 1 else secs * 9
+    slices = [0] * (int((ends[-1] - t_start) // slice_s) + 1)
+    for t in ends:
+        slices[int((t - t_start) // slice_s)] += 1
+    print(f"pace: {len(ends)} {name}, ms p10 {q[0] * 1e3:.2f} median "
+          f"{statistics.median(secs) * 1e3:.2f} p90 {q[-1] * 1e3:.2f} "
+          f"max {max(secs) * 1e3:.2f}; per {slice_s:g} s {slices}",
+          file=sys.stderr)

@@ -20,11 +20,13 @@ inside it, nested spans included), launches, host syncs and sync-wait ms
 span, and the sum of their durations).  The ``bench::`` spans' own syncs
 lie outside every ``apr::`` span and are not counted.
 
-:func:`profiled_window` is the traced window of ``harness/tracing.py``
-that also keeps this reading, and the RANSAC hypotheses the program
-counted in it (``ransac_from_draws.hypotheses`` of ``apr_torch``, read
-where the program has that counter).  :func:`metric_values` gives the
-per-layer metrics named after what they read.
+:func:`profiled_window` is the loops' traced window: the profile, the
+benchmark's reading of it (``frozen/profiling.py``), this reading, and
+the RANSAC hypotheses the program counted in it
+(``ransac_from_draws.hypotheses`` of ``apr_torch``, read where the program
+has that counter).  The per-layer metrics' readers read it through
+``TraceRun.span_mean`` (``harness/tracing.py``); :func:`metric_values`
+gives the metrics that read the units' syncs and the counter.
 """
 
 from __future__ import annotations
@@ -273,10 +275,11 @@ def hypotheses() -> Optional[int]:
 
 @contextlib.contextmanager
 def profiled_window(device: torch.device, first_stage: str = "build"):
-    """``harness/tracing.py::profiled_window`` (the same profile, synced
-    alike), which also leaves in the box ``program``: the window's
-    :func:`readings`, its :func:`links` and the hypotheses scored inside
-    it (None where the program counts none)."""
+    """Profile the block, the card synchronised at both ends; the box it
+    yields holds, after it, ``window`` (the frozen reading of the profile)
+    and ``program``: the window's :func:`readings`, its :func:`links` and
+    the hypotheses scored inside it (None where the program counts
+    none)."""
     from harness import tracing
     from torch.profiler import ProfilerActivity, profile
 

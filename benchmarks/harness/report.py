@@ -5,7 +5,7 @@ metrics, the device and the comparison."""
 from __future__ import annotations
 
 import sys
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -16,8 +16,11 @@ GIB = float(1 << 30)
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
-             device: torch.device, clock0: float, control: bool = False
-             ) -> Dict:
+             device: torch.device, clock0: float, control: bool = False,
+             keep: Optional[List] = None) -> Dict:
+    """The result line of one run; with ``trace``, where ``keep`` is a
+    list, the ``TraceRun`` that the metrics were read from is appended to
+    it."""
     loop = loop_module(cell.mix["loop"])
     res = loop.run(cell, seed, seconds, trace, device, clock0, control)
     rows = checks.verdict(res["values"], cell.limits)
@@ -31,6 +34,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                count=cell.chips, memory_peak_bytes=res["memory_peak_bytes"])
     if trace:
         run = loop.trace_run(res)
+        if keep is not None:
+            keep.append(run)
         for m in cell.per_layer:
             v = metric_reader(m["name"])(run)
             if v is not None:

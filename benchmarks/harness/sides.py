@@ -1,18 +1,48 @@
 """The two sides of a comparison, built alike from a configuration's
 fields: the program (``apr_torch``, the port under test) and the frozen
-reference (``reference.aprref``); and the weights that the benchmark
-draws from the seed and hands to both."""
+reference that the configuration names (``reference.aprref`` where it
+names none); and the weights that the benchmark draws from the seed and
+hands to both."""
 
 from __future__ import annotations
 
 import importlib
 import math
-from typing import Dict, List, Tuple
+from types import ModuleType
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
 PROGRAM = "apr_torch"
 REFERENCE = "reference.aprref"
+
+
+class Reference(NamedTuple):
+    """A frozen reference package: its trainer and tester make the
+    reference ``Side`` (``Side(pkg, ...)``), its ``precision.lower`` the
+    control, and its ``tally`` counts the work that the shares of a peak
+    divide by, so the three always come from one package."""
+    pkg: str
+    precision: ModuleType
+    tally: ModuleType
+
+
+def reference_of(cell) -> Reference:
+    """The reference of ``cell``'s configuration: the package that its
+    file names under the top-level key ``"reference"``, else
+    ``reference.aprref``.  A name that does not import, or that names the
+    program, stops the run here, before its set-up."""
+    pkg = cell.config.get("reference", REFERENCE)
+    try:
+        if not isinstance(pkg, str) or pkg.split(".")[0] == PROGRAM:
+            raise ImportError("not a reference package")
+        importlib.import_module(pkg)
+        precision = importlib.import_module(pkg + ".precision")
+        tally = importlib.import_module(pkg + ".tally")
+    except ImportError as e:
+        raise SystemExit(f"{cell.config_file}: the reference {pkg!r} does "
+                         f"not import: {e}") from e
+    return Reference(pkg, precision, tally)
 
 
 class Side:

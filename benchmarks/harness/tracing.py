@@ -1,7 +1,9 @@
 """The traced window: a fixed number of steps or pairs under
-``torch.profiler``, each stage a span of the benchmark's own, synchronised
-at both ends, around the public call into its layer; and the unprofiled
-host-clock timings that the shares of a peak divide by."""
+``torch.profiler`` (``harness/program.py::profiled_window``), each stage a
+span of the benchmark's own, synchronised at both ends, around the public
+call into its layer; what the per-layer metrics' readers read of it
+(:class:`TraceRun`, the program's own ``apr::`` spans among it); and the
+unprofiled host-clock timings that the shares of a peak divide by."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Dict, List, Optional
 import torch
 
 from frozen import profiling
+from harness import program
 
 
 def sync(device: torch.device) -> None:
@@ -52,6 +55,13 @@ class TraceRun:
     # back to back); None where the loop has none
     unit_wall_s: Optional[float] = None
     build_wall_s: Optional[float] = None
+    # the reading of the program's ``apr::`` spans and counter
+    # (``harness/program.py::profiled_window``); None where the loop has
+    # none
+    program: Optional[Dict] = None
+    # the end-to-end readings of the timed window that the traced run ran
+    # unprofiled before its trace, by the end-to-end metric's name
+    window: Dict[str, float] = field(default_factory=dict)
 
     def stage_mean(self, stage: str, key: str) -> float:
         vals = [u[stage][key] for u in self.units if stage in u]
@@ -62,6 +72,15 @@ class TraceRun:
         stages."""
         vals = [sum(r[key] for r in u.values()) for u in self.units]
         return sum(vals) / len(vals) if vals else float("nan")
+
+    def span_mean(self, span: str, key: str) -> Optional[float]:
+        """The mean over units of ``key`` (``busy_ms``, ``host_ms``,
+        ``launches``, ``syncs`` or ``sync_wait_ms``) in the row of the
+        program's span ``apr::<span>``, over the units that have it; None
+        where no unit has that span."""
+        if not self.program:
+            return None
+        return program.span_mean(self.program["units"], span, key)
 
     def kernel_s(self, stage: str, needle: str) -> List[float]:
         """Per unit, the device seconds of kernels whose name holds
@@ -74,23 +93,6 @@ class TraceRun:
                 if s > 0:
                     out.append(s)
         return out
-
-
-@contextlib.contextmanager
-def profiled_window(device: torch.device):
-    """Profile the block; yields a dict that holds the read window after
-    it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    box: Dict = {}
-    sync(device)
-    with profile(activities=acts) as prof:
-        yield box
-        sync(device)
-    box["window"] = profiling.read_events(prof)
 
 
 def readings(win: "profiling.Window", stages_per_unit: List[str]):

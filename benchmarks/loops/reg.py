@@ -11,7 +11,9 @@ over all of them, is registered again by the reference from the same
 weights, inputs and random draws, and its answers are held to the
 window's.  The program encodes the sampled pairs once more, outside the
 timing, so that its batches and features are held to the reference's
-too."""
+too.  The reference, its control and its work counts come from the
+package that the configuration names (``harness/sides.py::
+reference_of``)."""
 
 from __future__ import annotations
 
@@ -23,15 +25,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from harness import checks
+from harness import checks, program
 from harness.common import derived_seed, free, generator, memory_peak, \
-    print_setup, reset_peak
+    print_pace, print_setup, reset_peak
 from harness.inputs import jittered, make_pool, rng
-from harness.sides import PROGRAM, REFERENCE, Side, draw_weights, \
-    host_leaves, load_weights
-from harness.tracing import Spans, TraceRun, profiled_window, readings, \
-    sync, timed
-from reference.aprref import precision, tally
+from harness.sides import PROGRAM, Side, draw_weights, host_leaves, \
+    load_weights, reference_of
+from harness.tracing import Spans, TraceRun, readings, sync, timed
 
 WARMUP_INDEX = 1 << 40     # jitter indices of the warm-up pairs
 PACE_INDEX = 1 << 41       # jitter indices of the trace's timed pairs
@@ -89,7 +89,8 @@ def run(cell, seed: int, seconds: float, trace: bool,
         device: torch.device, clock0: float, control: bool = False) -> Dict:
     mix, frames = cell.mix, cell.config["frames"]["reg"]
     fields = cell.config["fields"]
-    lower = precision.lower if control else contextlib.nullcontext
+    ref = reference_of(cell)
+    lower = ref.precision.lower if control else contextlib.nullcontext
     marks = [("imports", time.perf_counter())]
     pool = make_pool(mix["scene_seed"], mix["pool_pairs"], frames["points"],
                      4, mix["min_dist"], mix["max_dist"], seed)
@@ -103,7 +104,7 @@ def run(cell, seed: int, seconds: float, trace: bool,
     answers: List[torch.Tensor] = []
     off = Spans(device, False)
     with lower():
-        prog = Side(REFERENCE if control else PROGRAM, fields, device)
+        prog = Side(ref.pkg if control else PROGRAM, fields, device)
         marks.append(("trainer", time.perf_counter()))
         weights = draw_weights(prog, derived_seed(seed, 0))
         load_weights(prog, weights)
@@ -118,23 +119,10 @@ def run(cell, seed: int, seconds: float, trace: bool,
         print_setup(clock0, marks)
         setup_peak = memory_peak(device)
         reset_peak(device)
-        if trace:
-            res["unit_wall_s"] = timed(
-                device, mix["pace_pairs"],
-                lambda j: register(prog, pair(PACE_INDEX + j),
-                                   derived_seed(seed, 2, PACE_INDEX + j),
-                                   off))
-        if trace or control:
-            spans = Spans(device, trace)
-            with (profiled_window(device) if trace
-                  else contextlib.nullcontext({})) as box:
-                for k in range(mix["trace_pairs"]):
-                    answers.append(register(prog, pair(k),
-                                            derived_seed(seed, 2, k), spans))
-            if trace:
-                res["trace"] = readings(box["window"], ["build", "step"])
-        else:
-            lat = []
+        if not control:
+            # the timed window; a traced run runs it too, unprofiled,
+            # before its trace (``TraceRun.window``)
+            lat, ends = [], []
             sync(device)
             t_start = time.perf_counter()
             while time.perf_counter() - t_start < seconds:
@@ -143,10 +131,31 @@ def run(cell, seed: int, seconds: float, trace: bool,
                 answers.append(register(prog, p,
                                         derived_seed(seed, 2, len(answers)),
                                         off))
-                lat.append(time.perf_counter() - t_in)
+                ends.append(time.perf_counter())
+                lat.append(ends[-1] - t_in)
             elapsed = time.perf_counter() - t_start
-            res["reg_pairs_per_s"] = len(lat) / elapsed
-            res["reg_latency_p90_ms"] = float(np.percentile(lat, 90)) * 1e3
+            print_pace("pairs", t_start, ends)
+            res["window"] = dict(
+                reg_pairs_per_s=len(lat) / elapsed,
+                reg_latency_p90_ms=float(np.percentile(lat, 90)) * 1e3)
+            res.update(res["window"])
+        if trace:
+            res["unit_wall_s"] = timed(
+                device, mix["pace_pairs"],
+                lambda j: register(prog, pair(PACE_INDEX + j),
+                                   derived_seed(seed, 2, PACE_INDEX + j),
+                                   off))
+        if trace or control:
+            spans = Spans(device, trace)
+            first = len(answers)
+            with (program.profiled_window(device) if trace
+                  else contextlib.nullcontext({})) as box:
+                for k in range(first, first + mix["trace_pairs"]):
+                    answers.append(register(prog, pair(k),
+                                            derived_seed(seed, 2, k), spans))
+            if trace:
+                res["trace"] = readings(box["window"], ["build", "step"])
+                res["program"] = box["program"]
         res["peak_window"] = memory_peak(device)
         res["memory_peak_bytes"] = max(setup_peak, res["peak_window"])
         # the sample, drawn over every pair of the window once it has
@@ -169,16 +178,16 @@ def run(cell, seed: int, seconds: float, trace: bool,
 
     # the reference registers the sampled pairs again from the same
     # weights, inputs and random draws, from its own batches and features
-    ref = Side(REFERENCE, fields, device)
-    load_weights(ref, weights)
+    ref_side = Side(ref.pkg, fields, device)
+    load_weights(ref_side, weights)
     vals = dict(build_int_mismatch=0.0, build_float_gap=0.0, feat_gap=0.0,
                 answer_gap=0.0)
     work = {"k1_bytes": 0, "fwd_flops": 0}
     for k in sample:
         got, got_kept = answers[k], kept[k]
-        with tally.counting() as c:
-            batch, feats = encode(ref, pair(k))
-            want = evaluate(ref, batch, feats, derived_seed(seed, 2, k))
+        with ref.tally.counting() as c:
+            batch, feats = encode(ref_side, pair(k))
+            want = evaluate(ref_side, batch, feats, derived_seed(seed, 2, k))
         for n in work:
             work[n] += c[n] / len(sample)
         n_int, f_gap = checks.build_gaps(got_kept["built"],
@@ -186,14 +195,14 @@ def run(cell, seed: int, seconds: float, trace: bool,
         vals["build_int_mismatch"] += n_int
         vals["build_float_gap"] = max(vals["build_float_gap"], f_gap)
         for fp, fr, m in zip(got_kept["feats"], host_leaves(feats),
-                             valid_rows(ref, batch)):
+                             valid_rows(ref_side, batch)):
             vals["feat_gap"] = max(vals["feat_gap"],
                                    checks.feature_gap(fp, fr, m))
         vals["answer_gap"] = max(vals["answer_gap"],
                                  checks.answer_gap(got, want))
         print(f"pair {k}: program {got.tolist()}", file=sys.stderr)
         print(f"pair {k}: reference {want.tolist()}", file=sys.stderr)
-    del ref
+    del ref_side
     free(device)
     res["values"] = vals
     res["work"] = dict(k1_bytes=work["k1_bytes"], flops=work["fwd_flops"])
@@ -203,4 +212,5 @@ def run(cell, seed: int, seconds: float, trace: bool,
 def trace_run(res: Dict) -> Optional[TraceRun]:
     units, window_s, busy_s, breakdown = res["trace"]
     return TraceRun("reg", units, window_s, busy_s, res["work"], 1,
-                    breakdown, unit_wall_s=res["unit_wall_s"])
+                    breakdown, unit_wall_s=res["unit_wall_s"],
+                    program=res["program"], window=res.get("window", {}))

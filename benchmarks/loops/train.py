@@ -13,7 +13,9 @@ contrastive generator's state).  The reference follows both runs of
 steps: the first from the benchmark's weights, the last from a host copy
 of the state the window left.  For each: the losses, the gradient as the
 optimizer gets it (the change of its momentum buffers in the first step)
-and each leaf's change over the steps."""
+and each leaf's change over the steps.  The reference, its control and its
+work counts come from the package that the configuration names
+(``harness/sides.py::reference_of``)."""
 
 from __future__ import annotations
 
@@ -22,19 +24,18 @@ import copy
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from types import ModuleType
 from typing import Dict, List
 
 import torch
 
-from harness import checks
+from harness import checks, program
 from harness.common import derived_seed, free, generator, memory_peak, \
-    print_setup, reset_peak
+    print_pace, print_setup, reset_peak
 from harness.inputs import PaddedPool, make_pool
-from harness.sides import PROGRAM, REFERENCE, Side, draw_weights, \
-    host_leaves, load_weights
-from harness.tracing import Spans, TraceRun, profiled_window, readings, \
-    sync, timed
-from reference.aprref import precision, tally
+from harness.sides import PROGRAM, Side, draw_weights, host_leaves, \
+    load_weights, reference_of
+from harness.tracing import Spans, TraceRun, readings, sync, timed
 
 STEPS_CHECKED = 3
 BUILD_INDEX = 1 << 40      # step indices of the trace's timed builds
@@ -70,12 +71,13 @@ def _momenta(side: Side) -> Dict[str, torch.Tensor]:
             if "momentum_buffer" in state.get(p, {})}
 
 
-def checked_steps(side: Side, feed: Feed, first: int, gen) -> Dict:
+def checked_steps(side: Side, feed: Feed, first: int, gen,
+                  tally: ModuleType) -> Dict:
     """``STEPS_CHECKED`` steps on the feed's batches ``first``, ...: their
     losses, the first batch on the host, each leaf's gradient as the
     optimizer gets it (its momentum buffer's change in the first step),
     each leaf's change over the steps, and the work that the reference
-    counts in them (none on the program's side)."""
+    counts in them through its ``tally`` (none on the program's side)."""
     tr = side.trainer
     before = {n: p.detach().clone() for n, p in _trained(side)}
     mom0 = _momenta(side)
@@ -124,11 +126,12 @@ def run(cell, seed: int, seconds: float, trace: bool,
         device: torch.device, clock0: float, control: bool = False) -> Dict:
     mix, frames = cell.mix, cell.config["frames"]["train"]
     fields = cell.config["fields"]
-    lower = precision.lower if control else contextlib.nullcontext
+    ref = reference_of(cell)
+    lower = ref.precision.lower if control else contextlib.nullcontext
     res: Dict = {}
     with lower():
         marks = [("imports", time.perf_counter())]
-        prog = Side(REFERENCE if control else PROGRAM, fields, device)
+        prog = Side(ref.pkg if control else PROGRAM, fields, device)
         marks.append(("trainer", time.perf_counter()))
         feed = Feed(prog, mix, frames, seed)
         marks.append(("pool", time.perf_counter()))
@@ -138,7 +141,7 @@ def run(cell, seed: int, seconds: float, trace: bool,
         gen_seed = derived_seed(seed, 1)
         gen = generator(device, gen_seed)
         marks.append(("weights", time.perf_counter()))
-        got_first = checked_steps(prog, feed, 0, gen)
+        got_first = checked_steps(prog, feed, 0, gen, ref.tally)
         sync(device)
         marks.append(("first steps", time.perf_counter()))
         res["setup_s"] = time.perf_counter() - clock0
@@ -159,6 +162,25 @@ def run(cell, seed: int, seconds: float, trace: bool,
                 k += 1
                 return metrics
 
+            if not control:
+                # the timed window; a traced run runs it too, unprofiled,
+                # before its trace (``TraceRun.window``)
+                skipped: List[torch.Tensor] = []
+                ends: List[float] = []
+                first = k
+                sync(device)
+                t_start = time.perf_counter()
+                while time.perf_counter() - t_start < seconds:
+                    skipped.append(step()["skipped_nonfinite"])
+                    ends.append(time.perf_counter())
+                sync(device)
+                elapsed = time.perf_counter() - t_start
+                print_pace("steps", t_start, ends)
+                res["window"] = dict(
+                    train_pairs_per_s=(k - first) * b / elapsed)
+                res.update(res["window"])
+                res["attempted"] = k - first
+                res["failed"] = int(sum(float(s) for s in skipped))
             if trace:
                 n = mix["pace_steps"]
                 res["unit_wall_s"] = timed(device, n, step)
@@ -167,7 +189,7 @@ def run(cell, seed: int, seconds: float, trace: bool,
                     device, n, lambda i: tr.build_batch(raws[i]))
                 del raws
                 spans = Spans(device, True)
-                with profiled_window(device) as box:
+                with program.profiled_window(device) as box:
                     for _ in range(mix["trace_steps"]):
                         raw = ahead.result()
                         ahead = loader.submit(feed.raw, k + 1)
@@ -177,19 +199,9 @@ def run(cell, seed: int, seconds: float, trace: bool,
                             tr.train_step(batch, gen)
                         k += 1
                 res["trace"] = readings(box["window"], ["build", "step"])
-                res.update(attempted=mix["trace_steps"], failed=0)
-            elif not control:
-                skipped: List[torch.Tensor] = []
-                first = k
-                sync(device)
-                t_start = time.perf_counter()
-                while time.perf_counter() - t_start < seconds:
-                    skipped.append(step()["skipped_nonfinite"])
-                sync(device)
-                elapsed = time.perf_counter() - t_start
-                res["train_pairs_per_s"] = (k - first) * b / elapsed
-                res["attempted"] = k - first
-                res["failed"] = int(sum(float(s) for s in skipped))
+                res["program"] = box["program"]
+                res["attempted"] = (res.get("attempted", 0)
+                                    + mix["trace_steps"])
             ahead.result()
         res.setdefault("attempted", 0)
         res.setdefault("failed", 0)
@@ -199,21 +211,23 @@ def run(cell, seed: int, seconds: float, trace: bool,
         left = host_state(tr.state_dict())
         gen_state = gen.get_state()
         last = k
-        got_last = checked_steps(prog, feed, last, gen)
+        got_last = checked_steps(prog, feed, last, gen, ref.tally)
         del prog, tr, gen, step
     free(device)
 
     # the reference follows the first steps from the same weights, inputs
     # and contrastive draws, then the last steps from the state the
     # window left
-    ref = Side(REFERENCE, fields, device)
-    load_weights(ref, weights)
-    want_first = checked_steps(ref, feed, 0, generator(device, gen_seed))
-    ref.trainer.load_state_dict(left)
+    ref_side = Side(ref.pkg, fields, device)
+    load_weights(ref_side, weights)
+    want_first = checked_steps(ref_side, feed, 0,
+                               generator(device, gen_seed), ref.tally)
+    ref_side.trainer.load_state_dict(left)
     ref_gen = generator(device, 0)
     ref_gen.set_state(gen_state)
-    want_last = checked_steps(ref, feed, last, ref_gen)
-    del ref, ref_gen
+    want_last = checked_steps(ref_side, feed, last, ref_gen,
+                              ref.tally)
+    del ref_side, ref_gen
     free(device)
 
     res["values"] = dict(compare(got_first, want_first, ""),
@@ -234,4 +248,5 @@ def trace_run(res: Dict) -> TraceRun:
     return TraceRun("train", units, window_s, busy_s, res["work"],
                     res["batch_size"], breakdown,
                     unit_wall_s=res["unit_wall_s"],
-                    build_wall_s=res["build_wall_s"])
+                    build_wall_s=res["build_wall_s"],
+                    program=res["program"], window=res.get("window", {}))

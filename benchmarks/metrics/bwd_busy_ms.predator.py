@@ -1,0 +1,7 @@
+"""predator-apr.train's reading of ``bwd_busy_ms.train`` (that metric's reader):
+the cell reports no end-to-end throughput, so its per-layer metrics carry
+names of their own (PERF.md, section 2)."""
+
+from harness.cells import metric_reader
+
+read = metric_reader("bwd_busy_ms.train")

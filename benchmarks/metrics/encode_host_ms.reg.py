@@ -1,0 +1,9 @@
+"""Host ms of the program's encoder span (``apr::encode``, its
+duration on the host under the profiler) in one registered pair, the mean
+over the traced pairs; None where the program opens no such span."""
+
+
+def read(run):
+    if run.kind != "reg":
+        return None
+    return run.span_mean("encode", "host_ms")

@@ -1,0 +1,11 @@
+"""Calls that block the host until the card has caught up (stream,
+device and event synchronisations, blocking copies) inside the
+program's ``apr::`` spans in one registered pair, the mean over the traced
+pairs (``harness/program.py``); None where the program opens no span."""
+
+from harness import program
+
+
+def read(run):
+    return program.metric_values(run.kind, run.program).get(
+        "host_syncs.reg")

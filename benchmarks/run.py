@@ -4,8 +4,9 @@
         --trace <0|1>
 
 With ``--trace 0`` it measures the cell's end-to-end metrics over a window
-of ``--seconds``; with ``--trace 1`` it profiles a fixed number of steps or
-pairs and reports the cell's per-layer metrics.  Either way the frozen
+of ``--seconds``; with ``--trace 1`` it runs the same window, then profiles
+a fixed number of steps or pairs, and reports the cell's per-layer metrics
+(the window's readings among them, where a cell reports them per layer).  Either way the frozen
 reference then checks what the timed path produced, and the last line of
 standard output is one JSON object (``correct``, ``attempted``, ``failed``,
 ``metrics``, ``device``, with ``--trace 1`` ``breakdown``, and last

@@ -4,13 +4,14 @@
         [--out <dir>]
 
 Each seed is one ``run.py --trace 1`` run of the cell (the same loop,
-window, comparison and result line), whose profile is also read by
-``harness/program.py``: the ``apr::`` spans that ``apr_torch`` opens at its
-step, build and tester boundaries, each unit's kernels attributed to them
-through their launch calls.  Printed per seed: the result line's per-layer
-metrics and ``correct``; per span the mean over units of host ms, busy ms,
-launches, host syncs and sync-wait ms; the per-layer metrics that read
-them (``program.metric_values``); and the checks of the reading: per
+window, comparison and result line), whose profile ``harness/program.py``
+reads as every traced run's: the ``apr::`` spans that ``apr_torch`` opens
+at its step, build and tester boundaries, each unit's kernels attributed
+to them through their launch calls.  Printed per seed: the result line's
+per-layer metrics and ``correct``; per span the mean over units of host
+ms, busy ms, launches, host syncs and sync-wait ms, read through the same
+``TraceRun.span_mean`` as the span metrics' readers; and the checks of
+the reading: per
 ``bench::`` stage the launches attributed (spans plus ``unattributed``)
 against the frozen count, busy against the frozen busy, the unattributed
 share of the stage's busy, the train step's three spans against the
@@ -41,23 +42,19 @@ def mean(vals):
     return sum(vals) / len(vals) if vals else float("nan")
 
 
-def report(cell: str, seed: int, out: dict, reading: dict) -> dict:
-    from harness import program
-
+def report(cell: str, seed: int, out: dict, run) -> dict:
+    """Print the run's span table and checks; the record to keep."""
+    reading = run.program
     units = reading["units"]
     names = list(dict.fromkeys(n for u in units for n in u["spans"]))
     print(f"== {cell} seed {seed}: correct {out['correct']}, "
           f"{len(units)} units, hypotheses {reading['hypotheses']}")
     for n, m in out["metrics"].items():
         print(f"metric {n} {m['value']!r} {m['unit']}")
-    vals = program.metric_values("train" if cell.endswith(".train")
-                                 else "reg", reading)
-    for n, v in vals.items():
-        print(f"program metric {n} {v!r}")
     print(f"{'span':<16} {'host ms':>10} {'busy ms':>10} {'launches':>9} "
           f"{'syncs':>6} {'wait ms':>10}")
     for n in names:
-        row = {k: program.span_mean(units, n, k) for k in
+        row = {k: run.span_mean(n, k) for k in
                ("host_ms", "busy_ms", "launches", "syncs", "sync_wait_ms")}
         print(f"{n:<16} {row['host_ms']:10.3f} {row['busy_ms']:10.3f} "
               f"{row['launches']:9.1f} {row['syncs']:6.1f} "
@@ -78,7 +75,7 @@ def report(cell: str, seed: int, out: dict, reading: dict) -> dict:
                                     for r in rows))
         print(f"check {stage}: {checks[stage]}")
     if "train.forward" in names:
-        three = sum(program.span_mean(units, n, "busy_ms") for n in
+        three = sum(run.span_mean(n, "busy_ms") for n in
                     ("train.forward", "train.backward", "train.update"))
         step = checks["step"]["frozen_busy_ms"]
         checks["three_over_step"] = three / max(step, 1e-12)
@@ -88,7 +85,7 @@ def report(cell: str, seed: int, out: dict, reading: dict) -> dict:
     for name, s in out.get("breakdown", {}).get("idle_gaps", []):
         print(f"idle gap {name} {s * 1e3:.3f} ms")
     return dict(cell=cell, seed=seed, correct=out["correct"],
-                metrics=out["metrics"], program_metrics=vals, checks=checks,
+                metrics=out["metrics"], checks=checks,
                 breakdown=out.get("breakdown"), device=out["device"],
                 reading=reading)
 
@@ -100,11 +97,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "spans"))
     args = ap.parse_args(argv)
 
-    import contextlib
-
     import torch
 
-    from harness import cells, program, tracing
+    from harness import cells
     from harness.report import run_cell
 
     torch.set_num_threads(2)
@@ -114,22 +109,13 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     cell = cells.load_cell(args.workload)
-    readings = []
-
-    @contextlib.contextmanager
-    def window(dev):
-        with program.profiled_window(dev) as box:
-            yield box
-        readings.append(box["program"])
-
-    tracing.profiled_window = window
     os.makedirs(args.out, exist_ok=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(device)}")
     for seed in args.seed:
-        readings.clear()
-        out = run_cell(cell, seed, 1.0, True, device, CLOCK0)
-        rec = report(args.workload, seed, out, readings[0])
+        runs = []
+        out = run_cell(cell, seed, 1.0, True, device, CLOCK0, keep=runs)
+        rec = report(args.workload, seed, out, runs[0])
         path = os.path.join(args.out, f"{args.workload}.{seed}.json")
         with open(path, "w") as f:
             json.dump(rec, f)
