@@ -42,9 +42,12 @@ def worst_leaf_gap(prog: Dict[str, float], ref: Dict[str, float]) -> float:
     against the larger of its reference norm and the median leaf's.
     Leaves whose reference norm is under a thousandth of the median's
     (a conv bias under batch norm, moved by round-off alone) are left
-    out."""
+    out.  Where the reference read no leaf at all there is nothing that
+    could agree: the gap is infinite, never 0."""
+    if not ref:
+        return float("inf")
     vals = sorted(ref.values())
-    med = vals[len(vals) // 2] if vals else 0.0
+    med = vals[len(vals) // 2]
     gaps = [abs(prog.get(n, 0.0) - r) / max(r, med)
             for n, r in ref.items() if r >= 1e-3 * med and med > 0]
     return max(gaps) if gaps else 0.0

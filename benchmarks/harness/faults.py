@@ -1,13 +1,17 @@
 """Faults planted in the program under the timed path, which the
 comparison has to catch (``correct`` false): the benchmark's tests plant
 them at a tiny size on the CPU, and ``run.py --fault <name>`` at the
-cell's own size on the card.  The benchmark's own runs plant none."""
+cell's own size on the card.  The benchmark's own runs plant none.
+Each takes the cell and patches the classes that its configuration names
+(``harness/sides.py::roles_of``), whatever they are."""
 
 from __future__ import annotations
 
 import contextlib
 
 import torch
+
+from harness.sides import PROGRAM, roles_of
 
 
 def _unchanged(self, batch, generator=None, *args, **kw):
@@ -17,64 +21,73 @@ def _unchanged(self, batch, generator=None, *args, **kw):
     return dict(metrics, skipped_nonfinite=torch.zeros(()))
 
 
+_INHERITED = object()
+
+
 @contextlib.contextmanager
 def _patched(cls, name, fn):
-    orig = getattr(cls, name)
+    own = cls.__dict__.get(name, _INHERITED)
     setattr(cls, name, fn)
     try:
         yield
     finally:
-        setattr(cls, name, orig)
+        if own is _INHERITED:
+            delattr(cls, name)
+        else:
+            setattr(cls, name, own)
+
+
+def _program(cell):
+    """The program's trainer and tester classes that ``cell``'s
+    configuration names (``harness/sides.py::roles_of``)."""
+    return roles_of(cell).classes(PROGRAM)
 
 
 @contextlib.contextmanager
-def unchanged():
-    """Both trainers' steps leave parameters and optimizer state as they
-    were."""
-    from apr_torch.training.predator import PredatorTrainer
-    from apr_torch.training.trainer import FCGFTrainer
-
-    with _patched(FCGFTrainer, "train_step", _unchanged), \
-            _patched(PredatorTrainer, "train_step", _unchanged):
+def unchanged(cell):
+    """The cell's trainer's step leaves parameters and optimizer state as
+    they were."""
+    trainer, _ = _program(cell)
+    with _patched(trainer, "train_step", _unchanged):
         yield
 
 
 @contextlib.contextmanager
-def half_batch():
-    """The FCGF loss over the first half of the batch's pairs only, its
-    means taken over that half."""
+def half_batch(cell):
+    """The cell's loss over the first half of the batch's pairs only, its
+    means taken over that half: a fault of a cell whose steps take a group
+    of pairs."""
     from apr_torch.training import batching
-    from apr_torch.training.trainer import FCGFTrainer
 
-    loss_fn = FCGFTrainer.loss_fn
+    if roles_of(cell).pairs != "group":
+        raise ValueError(f"{cell.name} takes one pair a step: it has no "
+                         f"half of a batch to leave out")
+    trainer, _ = _program(cell)
+    loss_fn = trainer.loss_fn
 
     def half(self, batch, *args, **kw):
         b = batch.feats0.shape[0]
         return loss_fn(self, batching._slice_tree(batch, slice(0, b // 2)),
                        *args, **kw)
 
-    with _patched(FCGFTrainer, "loss_fn", half):
+    with _patched(trainer, "loss_fn", half):
         yield
 
 
 @contextlib.contextmanager
-def answer():
-    """Each registered pair's pose moved by 5 cm where ``eval_one``
-    produces it."""
-    from apr_torch.eval import FeatureTester, PredatorTester
+def answer(cell):
+    """Each registered pair's pose moved by 5 cm where the cell's tester's
+    ``eval_one`` produces it."""
+    _, tester = _program(cell)
+    eval_one = tester.eval_one
 
-    def altered(eval_one):
-        def fn(self, *args, **kw):
-            t, rte, rre, fit = eval_one(self, *args, **kw)
-            t = t.clone()
-            t[0, 3] += 0.05
-            return t, rte, rre, fit
-        return fn
+    def altered(self, *args, **kw):
+        t, rte, rre, fit = eval_one(self, *args, **kw)
+        t = t.clone()
+        t[0, 3] += 0.05
+        return t, rte, rre, fit
 
-    with _patched(FeatureTester, "eval_one",
-                  altered(FeatureTester.eval_one)), \
-            _patched(PredatorTester, "eval_one",
-                     altered(PredatorTester.eval_one)):
+    with _patched(tester, "eval_one", altered):
         yield
 
 

@@ -12,8 +12,9 @@ weights, inputs and random draws, and its answers are held to the
 window's.  The program encodes the sampled pairs once more, outside the
 timing, so that its batches and features are held to the reference's
 too.  The reference, its control and its work counts come from the
-package that the configuration names (``harness/sides.py::
-reference_of``)."""
+package that the configuration names, and both sides' trainer and tester
+from the classes that it names (``harness/sides.py::reference_of``,
+``roles_of``)."""
 
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from harness.common import derived_seed, free, generator, memory_peak, \
     print_pace, print_setup, reset_peak
 from harness.inputs import jittered, make_pool, rng
 from harness.sides import PROGRAM, Side, draw_weights, host_leaves, \
-    load_weights, reference_of
+    load_weights, reference_of, roles_of
 from harness.tracing import Spans, TraceRun, readings, sync, timed
 
 WARMUP_INDEX = 1 << 40     # jitter indices of the warm-up pairs
@@ -55,10 +56,11 @@ def register(side: Side, pair: Dict, seed: int, spans: Spans
 
 def encode(side: Side, pair: Dict):
     """The pair's batch and its encoder outputs, as ``step`` makes them:
-    (f0, f1) for FCGF, the KPFCNN's outputs for Predator."""
+    the tester's ``forward`` outputs where a side takes one pair, (f0, f1)
+    of the first pair where it takes a group (``harness/sides.py``)."""
     batch = side.tester._bucketed_batch(pair)
     with torch.inference_mode():
-        if side.predator:
+        if side.pairs == "one":
             return batch, side.tester.forward(batch)
         f0, f1 = side.trainer._encode_pair(batch, train=False)
         return batch, (f0[0], f1[0])
@@ -69,7 +71,7 @@ def evaluate(side: Side, batch, feats, seed: int) -> torch.Tensor:
     ``step`` does: the answer."""
     with torch.inference_mode():
         gen = generator(side.device, seed)
-        if side.predator:
+        if side.pairs == "one":
             return answer(*side.tester.eval_one(feats, batch, gen))
         return answer(*side.tester.eval_one(
             feats[0], feats[1], batch.xyz0[0], batch.xyz1[0],
@@ -77,11 +79,12 @@ def evaluate(side: Side, batch, feats, seed: int) -> torch.Tensor:
             batch.pyramid1.levels[0].mask[0], batch.t_gt[0], gen))
 
 
-def valid_rows(side: Side, batch) -> List[torch.Tensor]:
-    """The level-0 masks of the encoder outputs' rows, in their order."""
-    if side.predator:
+def valid_rows(side: Side, batch, n: int) -> List[torch.Tensor]:
+    """The level-0 masks of the ``n`` encoder outputs' rows, in their
+    order."""
+    if side.pairs == "one":
         m0, m1 = batch.pyr0.levels[0].mask, batch.pyr1.levels[0].mask
-        return [m0, m1, m0, m1, m0, m1]
+        return [(m0, m1)[i % 2] for i in range(n)]
     return [batch.pyramid0.levels[0].mask[0], batch.pyramid1.levels[0].mask[0]]
 
 
@@ -89,7 +92,7 @@ def run(cell, seed: int, seconds: float, trace: bool,
         device: torch.device, clock0: float, control: bool = False) -> Dict:
     mix, frames = cell.mix, cell.config["frames"]["reg"]
     fields = cell.config["fields"]
-    ref = reference_of(cell)
+    ref, roles = reference_of(cell), roles_of(cell)
     lower = ref.precision.lower if control else contextlib.nullcontext
     marks = [("imports", time.perf_counter())]
     pool = make_pool(mix["scene_seed"], mix["pool_pairs"], frames["points"],
@@ -104,7 +107,7 @@ def run(cell, seed: int, seconds: float, trace: bool,
     answers: List[torch.Tensor] = []
     off = Spans(device, False)
     with lower():
-        prog = Side(ref.pkg if control else PROGRAM, fields, device)
+        prog = Side(ref.pkg if control else PROGRAM, fields, device, roles)
         marks.append(("trainer", time.perf_counter()))
         weights = draw_weights(prog, derived_seed(seed, 0))
         load_weights(prog, weights)
@@ -178,7 +181,7 @@ def run(cell, seed: int, seconds: float, trace: bool,
 
     # the reference registers the sampled pairs again from the same
     # weights, inputs and random draws, from its own batches and features
-    ref_side = Side(ref.pkg, fields, device)
+    ref_side = Side(ref.pkg, fields, device, roles)
     load_weights(ref_side, weights)
     vals = dict(build_int_mismatch=0.0, build_float_gap=0.0, feat_gap=0.0,
                 answer_gap=0.0)
@@ -194,8 +197,9 @@ def run(cell, seed: int, seconds: float, trace: bool,
                                          host_leaves(batch))
         vals["build_int_mismatch"] += n_int
         vals["build_float_gap"] = max(vals["build_float_gap"], f_gap)
-        for fp, fr, m in zip(got_kept["feats"], host_leaves(feats),
-                             valid_rows(ref_side, batch)):
+        want_feats = host_leaves(feats)
+        for fp, fr, m in zip(got_kept["feats"], want_feats,
+                             valid_rows(ref_side, batch, len(want_feats))):
             vals["feat_gap"] = max(vals["feat_gap"],
                                    checks.feature_gap(fp, fr, m))
         vals["answer_gap"] = max(vals["answer_gap"],

@@ -12,20 +12,22 @@ left (its parameters, running stats, optimizer state, step and the
 contrastive generator's state).  The reference follows both runs of
 steps: the first from the benchmark's weights, the last from a host copy
 of the state the window left.  For each: the losses, the gradient as the
-optimizer gets it (the change of its momentum buffers in the first step)
-and each leaf's change over the steps.  The reference, its control and its
-work counts come from the package that the configuration names
-(``harness/sides.py::reference_of``)."""
+optimizer gets it in the first step (:func:`first_grad`) and each leaf's
+change over the steps.  The reference, its control and its work counts
+come from the package that the configuration names, and both sides'
+trainer and tester from the classes that it names
+(``harness/sides.py::reference_of``, ``roles_of``)."""
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from types import ModuleType
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -34,7 +36,7 @@ from harness.common import derived_seed, free, generator, memory_peak, \
     print_pace, print_setup, reset_peak
 from harness.inputs import PaddedPool, make_pool
 from harness.sides import PROGRAM, Side, draw_weights, host_leaves, \
-    load_weights, reference_of
+    load_weights, reference_of, roles_of
 from harness.tracing import Spans, TraceRun, readings, sync, timed
 
 STEPS_CHECKED = 3
@@ -47,7 +49,7 @@ class Feed:
 
     def __init__(self, side: Side, mix: Dict, frames: Dict, seed: int):
         self.b = side.config.batch_size
-        self.batched = not side.predator
+        self.batched = side.pairs == "group"
         self.mix, self.seed = mix, seed
         pairs = make_pool(mix["scene_seed"], mix["pool_batches"] * self.b,
                           frames["points"], frames["apc_points"],
@@ -71,28 +73,63 @@ def _momenta(side: Side) -> Dict[str, torch.Tensor]:
             if "momentum_buffer" in state.get(p, {})}
 
 
+def _keeps_momentum(opt: torch.optim.Optimizer) -> bool:
+    return isinstance(opt, torch.optim.SGD) and all(
+        g["momentum"] != 0 for g in opt.param_groups)
+
+
+def first_grad(side: Side, step: Callable[[], Dict]
+               ) -> Tuple[Dict, Dict[str, float]]:
+    """Run ``step``: its metrics, and the norm of each trained leaf's
+    gradient as the optimizer got it: under SGD with momentum the change of
+    the leaf's momentum buffer, under any other optimizer the leaf's
+    ``grad`` as ``optimizer.step`` received it.  A leaf that the step read
+    nothing for (a step that the non-finite gate skipped) reads 0."""
+    trained = _trained(side)
+    opt = side.trainer.optimizer
+    if _keeps_momentum(opt):
+        mom0 = _momenta(side)
+        metrics = step()
+        got = {n: m - mom0[n] if n in mom0 else m
+               for n, m in _momenta(side).items()}
+    else:
+        got = {}
+
+        def seen(*_):
+            got.update((n, p.grad.detach().clone()) for n, p in trained
+                       if p.grad is not None)
+
+        hook = opt.register_step_pre_hook(seen)
+        try:
+            metrics = step()
+        finally:
+            hook.remove()
+    return metrics, dict({n: 0.0 for n, _ in trained},
+                         **checks.leaf_norms(got))
+
+
 def checked_steps(side: Side, feed: Feed, first: int, gen,
                   tally: ModuleType) -> Dict:
     """``STEPS_CHECKED`` steps on the feed's batches ``first``, ...: their
     losses, the first batch on the host, each leaf's gradient as the
-    optimizer gets it (its momentum buffer's change in the first step),
-    each leaf's change over the steps, and the work that the reference
-    counts in them through its ``tally`` (none on the program's side)."""
+    optimizer gets it in the first step (:func:`first_grad`), each leaf's
+    change over the steps, and the work that the reference counts in them
+    through its ``tally`` (none on the program's side)."""
     tr = side.trainer
     before = {n: p.detach().clone() for n, p in _trained(side)}
-    mom0 = _momenta(side)
     out = dict(loss=[], work=Counter())
     for j in range(STEPS_CHECKED):
         with tally.counting() as work:
             batch = tr.build_batch(feed.raw(first + j))
-            metrics = tr.train_step(batch, gen)
+            step = functools.partial(tr.train_step, batch, gen)
+            if j == 0:
+                metrics, out["grad"] = first_grad(side, step)
+            else:
+                metrics = step()
         out["work"].update(work)
         out["loss"].append(float(metrics["loss"]))
         if j == 0:
             out["built"] = host_leaves(batch)
-            out["grad"] = checks.leaf_norms({
-                n: m - mom0[n] if n in mom0 else m
-                for n, m in _momenta(side).items()})
     out["move"] = checks.leaf_norms({
         n: p.detach() - before[n] for n, p in _trained(side)})
     return out
@@ -126,12 +163,12 @@ def run(cell, seed: int, seconds: float, trace: bool,
         device: torch.device, clock0: float, control: bool = False) -> Dict:
     mix, frames = cell.mix, cell.config["frames"]["train"]
     fields = cell.config["fields"]
-    ref = reference_of(cell)
+    ref, roles = reference_of(cell), roles_of(cell)
     lower = ref.precision.lower if control else contextlib.nullcontext
     res: Dict = {}
     with lower():
         marks = [("imports", time.perf_counter())]
-        prog = Side(ref.pkg if control else PROGRAM, fields, device)
+        prog = Side(ref.pkg if control else PROGRAM, fields, device, roles)
         marks.append(("trainer", time.perf_counter()))
         feed = Feed(prog, mix, frames, seed)
         marks.append(("pool", time.perf_counter()))
@@ -218,7 +255,7 @@ def run(cell, seed: int, seconds: float, trace: bool,
     # the reference follows the first steps from the same weights, inputs
     # and contrastive draws, then the last steps from the state the
     # window left
-    ref_side = Side(ref.pkg, fields, device)
+    ref_side = Side(ref.pkg, fields, device, roles)
     load_weights(ref_side, weights)
     want_first = checked_steps(ref_side, feed, 0,
                                generator(device, gen_seed), ref.tally)

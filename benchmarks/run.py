@@ -68,7 +68,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     plant = faults.FAULTS[args.fault] if args.fault else \
         contextlib.nullcontext
-    with plant():
+    with plant(cell):
         out = run_cell(cell, args.seed, args.seconds, bool(args.trace),
                        device, CLOCK0, control=bool(args.control))
     found = guard.forbidden_modules()

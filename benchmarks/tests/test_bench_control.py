@@ -25,7 +25,7 @@ def test_control_is_not_correct(name):
     ("answer", "fcgf-apr.reg", "answer_gap"),
     ("answer", "predator-apr.reg", "answer_gap")])
 def test_fault_is_not_correct(fault, name, number):
-    with faults.FAULTS[fault]():
+    with faults.FAULTS[fault](tiny.cell(name)):
         out = tiny.run(name)
     assert out["correct"] is False
     value, limit = {n: (v, lim) for n, v, lim in out["checks"]}[number]

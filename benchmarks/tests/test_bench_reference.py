@@ -7,7 +7,7 @@ import torch
 import tiny
 from harness.common import derived_seed, generator
 from harness.sides import PROGRAM, REFERENCE, Side, draw_weights, \
-    leaves, load_weights
+    leaves, load_weights, roles_of
 from harness.cells import loop_module
 
 Feed = loop_module("train").Feed
@@ -16,8 +16,8 @@ Feed = loop_module("train").Feed
 def sides(name):
     c = tiny.cell(name)
     dev = torch.device("cpu")
-    prog, ref = (Side(p, c.config["fields"], dev) for p in (PROGRAM,
-                                                             REFERENCE))
+    prog, ref = (Side(p, c.config["fields"], dev, roles_of(c))
+                 for p in (PROGRAM, REFERENCE))
     w = draw_weights(prog, derived_seed(tiny.SEED, 0))
     load_weights(prog, w)
     load_weights(ref, w)
