@@ -330,6 +330,19 @@ def sparse_conv_apply(
     return out
 
 
+def _rounded(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """x rounded to ``dtype`` (None: kept) and widened to float32."""
+    return (x.to(dtype) if dtype is not None else x).float()
+
+
+def _gathered(src: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """src [N_src, C] gathered through table [N, K] as [N, K * C]; an index
+    >= N_src (the sentinel) reads a zero row."""
+    n_src, c = src.shape
+    padded = torch.cat([src, src.new_zeros((1, c))], dim=0)
+    return padded[table.clamp(max=n_src).long()].reshape(table.shape[0], -1)
+
+
 def fold_table(table: torch.Tensor, n_entries: int) -> torch.Tensor:
     """Fold the batch dim of table [B, N_out, K] into rows: per-cloud index
     offsets and one global sentinel B * n_entries."""
@@ -368,7 +381,7 @@ class SparseConvAdjoint(torch.autograd.Function):
     def backward(ctx, g):
         feats, table, table_t, weights, out_mask, in_mask = ctx.saved_tensors
         cd = ctx.compute_dtype
-        n_in, ci = feats.shape
+        ci = feats.shape[1]
         n_out, k = table.shape
         co = weights.shape[-1]
         table_t = (table if table_t is None
@@ -377,14 +390,17 @@ class SparseConvAdjoint(torch.autograd.Function):
         w_t = weights.transpose(1, 2)                      # [K, Co, Ci]
         if ctx.reverse_k:
             w_t = w_t.flip(0)
-        dfeats = sparse_conv_apply(g, table_t, w_t, in_mask, cd)
+        # the operands rounded to the compute dtype and widened to float32
+        # before they are gathered: the float32 matrices of a gather in the
+        # compute dtype and its copy, the same values for the same matmuls,
+        # with no [N, K*C] gather in bf16 and no copy of it
+        gm, f = _rounded(g, cd), _rounded(feats, cd)
+        w_t = (w_t.to(cd) if cd is not None else w_t).reshape(k * co, ci)
+        dfeats = torch.matmul(_gathered(gm, table_t), w_t.float())
+        dfeats = torch.where(in_mask[:, None], dfeats, 0.0)
         # d weights: one [K*Ci, N_out] @ [N_out, Co] product over the
         # re-gathered inputs
-        f = feats.to(cd) if cd is not None else feats
-        gm = g.to(cd) if cd is not None else g
-        padded = torch.cat([f, f.new_zeros((1, ci))], dim=0)
-        gathered = padded[table.clamp(max=n_in).long()].reshape(n_out, k * ci)
-        dw = torch.matmul(gathered.float().T, gm.float()).reshape(k, ci, co)
+        dw = torch.matmul(_gathered(f, table).T, gm).reshape(k, ci, co)
         return (dfeats.to(feats.dtype), None, None, dw.to(weights.dtype),
                 None, None, None, None)
 

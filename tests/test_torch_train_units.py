@@ -130,6 +130,99 @@ def test_sparse_conv_adjoint_grads_match(run, reverse_k, maps, dtype,
         _close(got[2], plain[2], rtol=TOL, floor=TOL)
 
 
+def _adjoint_case(run, maps):
+    """(folded table, folded transpose table, out mask, in mask, reverse)
+    of a same-level, a stride-2 down or a transposed conv of the batch's
+    first pyramid."""
+    from apr_torch.models.sparse import fold_table
+
+    pyr = run["batch"].pyramid0
+    masks = [lv.mask.reshape(-1) for lv in pyr.levels]
+    table, table_t, m_out, m_in, reverse = {
+        "same": (pyr.same_maps[1], pyr.same_maps[1], masks[1], masks[1],
+                 True),
+        "down": (pyr.down_maps[0], pyr.up_maps[0], masks[1], masks[0],
+                 False),
+        "up": (pyr.up_maps[0], pyr.down_maps[0], masks[0], masks[1],
+               False)}[maps]
+    n_out, n_in = table.shape[1], table_t.shape[1]
+    return (fold_table(table, n_in), fold_table(table_t, n_out), m_out,
+            m_in, reverse)
+
+
+def _adjoint_grads(run, maps, cd, f, w, g):
+    """(d feats, d W) of the port's sparse_conv_adjoint."""
+    from apr_torch.models.sparse import sparse_conv_adjoint
+
+    tab, tab_t, m_out, m_in, reverse = _adjoint_case(run, maps)
+    tf, tw = (torch.from_numpy(x).requires_grad_() for x in (f, w))
+    out = sparse_conv_adjoint(tf, tab, tab_t[None], tw, m_out, m_in,
+                              reverse, cd)
+    return torch.autograd.grad(out, (tf, tw), torch.from_numpy(g))
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("maps", ["same", "down", "up"])
+def test_sparse_conv_adjoint_backward_is_the_materialised_chain(run, maps,
+                                                                dtype):
+    """The backward widens its operands before it gathers them; that is
+    the same float32 matrices for the same matmuls as gathering the rows
+    in the compute dtype and copying them to float32, so the gradients
+    equal that chain's bit for bit (a sum in another order would not)."""
+    tab, tab_t, m_out, m_in, reverse = _adjoint_case(run, maps)
+    rng = np.random.default_rng(11)
+    n_in, n_out = m_in.shape[0], m_out.shape[0]
+    f = rng.normal(size=(n_in, 24)).astype(np.float32)
+    w = rng.normal(size=(27, 24, 16)).astype(np.float32)
+    g = rng.normal(size=(n_out, 16)).astype(np.float32)
+    cd = None if dtype is None else getattr(torch, dtype)
+    got_df, got_dw = _adjoint_grads(run, maps, cd, f, w, g)
+
+    def low(x):
+        x = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        return x.to(cd) if cd is not None else x
+
+    def gathered(src, table):               # rows in the compute dtype
+        padded = torch.cat([src, src.new_zeros((1, src.shape[1]))])
+        return padded[table.clamp(max=src.shape[0]).long()].reshape(
+            table.shape[0], -1)
+
+    gm = low(torch.where(m_out[:, None], torch.from_numpy(g), 0.0))
+    w_t = torch.from_numpy(w).transpose(1, 2)
+    w_t = w_t.flip(0) if reverse else w_t
+    want_df = torch.where(m_in[:, None], torch.matmul(
+        gathered(gm, tab_t).float(), low(w_t).reshape(-1, 24).float()), 0.0)
+    want_dw = torch.matmul(gathered(low(f), tab).float().T,
+                           gm.float()).reshape(27, 24, 16)
+    assert torch.equal(got_df, want_df) and torch.equal(got_dw, want_dw)
+    assert bool(got_df[~m_in].eq(0).all()) and bool(got_df[m_in].ne(0).any())
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("maps", ["same", "down", "up"])
+def test_sparse_conv_adjoint_exact_on_integer_inputs(run, maps, dtype):
+    """On small integers every product and every float32 sum is exact,
+    whatever its order: the port's gradients then equal the reference's
+    custom VJP bit for bit, so a dropped, doubled or misplaced product (a
+    wrong tap, sentinel or mask) shows with no tolerance."""
+    from apr_tpu.models.sparse import sparse_conv_adjoint as ref_adjoint
+
+    tab, tab_t, m_out, m_in, reverse = _adjoint_case(run, maps)
+    rng = np.random.default_rng(12)
+    n_in, n_out = m_in.shape[0], m_out.shape[0]
+    f, w, g = (rng.integers(-4, 5, shape).astype(np.float32) for shape in
+               ((n_in, 8), (27, 8, 16), (n_out, 16)))
+    cd = None if dtype is None else getattr(torch, dtype)
+    got = _adjoint_grads(run, maps, cd, f, w, g)
+    J = jnp.asarray
+    _, vjp = jax.vjp(lambda x, y: ref_adjoint(
+        x, J(tab.numpy()), J(tab_t.numpy()), y, J(m_out.numpy()),
+        J(m_in.numpy()), reverse, dtype), J(f), J(w))
+    for a, want in zip(got, vjp(J(g))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(want))
+    assert float(got[1].abs().sum()) > 0
+
+
 def test_kernel_map_up_is_the_oracle_of_the_up_maps(run):
     from apr_torch.models.sparse import kernel_map_up
 
